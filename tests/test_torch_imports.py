@@ -1,0 +1,96 @@
+"""What the port may import and load: no JAX, flax, PIL or JAX package, the
+stage-1 geometry as committed literals, and chip_smoke.py's refusals."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from rl_collision_avoidance_tpu.worlds import stage1 as jstage1
+
+from rl_collision_avoidance_torch.ops import build
+from rl_collision_avoidance_torch.worlds import stage1
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "PIL", "rl_collision_avoidance_tpu")
+NO_CARD = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+_SLICE = """
+import sys
+import torch
+import chip_smoke
+from rl_collision_avoidance_torch import bench
+from rl_collision_avoidance_torch.engine.env import Env
+from rl_collision_avoidance_torch.models import load_policy
+from rl_collision_avoidance_torch.ops import build, lidar_cuda, trunk_cuda
+from rl_collision_avoidance_torch.utils import device, params
+from rl_collision_avoidance_torch.worlds import stage1
+
+env = Env(stage1(), device="cpu")
+policy = load_policy("results/stage1_params.npz", device="cpu")
+state, obs = env.reset(1)
+gen = torch.Generator().manual_seed(0)
+state, obs, stats = bench.run_acting(env, policy, state, obs, 2, gen)
+assert bool(stats["finite"])
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in {FORBIDDEN!r}))
+"""
+
+
+def _run(args, cwd=ROOT, env=None):
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_nothing_of_jax():
+    """Importing the port and chip_smoke.py, and running the stage-1 slice on
+    the CPU, loads none of JAX, flax, PIL or the JAX package."""
+    code = _SLICE.replace("{FORBIDDEN!r}", repr(set(FORBIDDEN)))
+    proc = _run(["-c", code], env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
+def test_stage1_geometry_table_is_the_jax_build():
+    mine, ref = stage1(), jstage1()
+    for name in ("seg_p", "seg_e", "seg_valid"):
+        a, b = getattr(mine, name), getattr(ref, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert int(mine.seg_valid.sum()) == 27 and mine.n_segments == 128
+
+
+def test_entry_points_need_a_card_unless_told():
+    code = ("from rl_collision_avoidance_torch.engine import Env\n"
+            "from rl_collision_avoidance_torch.worlds import mini\n"
+            "Env(mini(), device='cpu')\n"
+            "try:\n    Env(mini())\nexcept RuntimeError as e:\n"
+            "    print('raised', e)\n")
+    proc = _run(["-c", code], env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run(["chip_smoke.py"], env=NO_CARD)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_the_port(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], cwd=tmp_path, env=NO_CARD)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_build_is_one_plain_nvcc_call_for_sm_90a():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert {p.name for p in build.sources()} == {"lidar.cu", "trunk_fwd.cu"}
+    assert build.BUILD_ROOT == ROOT / "rl_collision_avoidance_torch" / "_build"
+    assert "rl_collision_avoidance_torch/_build/" in (
+        ROOT / ".gitignore").read_text().splitlines()
