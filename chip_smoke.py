@@ -1,16 +1,21 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the port's CUDA kernels, holds each against its plain PyTorch version
-on the card, then drives the stage-1 acting path (policy forward -> Gaussian
-sample -> env step, 128 arenas x 24 robots, the committed trained weights)
-and checks that it ran through the kernels and stayed right.
+on the card at every batch size the two paths below give it, then drives the
+stage-1 acting path (policy forward -> Gaussian sample -> env step, 128
+arenas x 24 robots, the committed trained weights) and the stage-1 training
+path (rollout, GAE and clipped PPO with Adam, 32 arenas, warm-started from
+the same weights), and checks that both ran through the kernels, at those
+batch sizes, and stayed right.  It writes nothing into the tree.
 
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  Exits non-zero, with no
 result line, when there is no card or when the port is not beside it.  Its
-last three lines are the per-kernel JSON record, the card's name and power
-limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+last three lines are the JSON record of each kernel on each path and batch
+size (launches counted on that path, times measured at that batch), the
+card's name and power limit from nvidia-smi, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,24 @@ LIDAR_ATOL = 1e-5     # normalized obs, as tests/test_pallas.py holds the TPU ke
 # weight, tap or layout (those give errors of order 1).
 TRUNK_ATOL = TRUNK_RTOL = 1e-4
 POLICY_ATOL = 1e-4    # actions and values through the trunk features
+TRAIN_ARENAS = 32     # the stage-1 preset of the committed training curve
+TRAIN_UPDATES = 2     # timed updates, after one warm-up update
+BWD_BATCH = 32768     # one stage-1 minibatch at 32 arenas (1024 x 32)
+# The trunk backward kernel against the plain version in float64: each
+# gradient element within BWD_TOL of the sum of the absolute values of its
+# terms (the same backward on |g|, |W|, |x|).  A float32 sum of n terms taken
+# in sequence errs by about 2^-24 sqrt(n / 3) of that sum even when all terms
+# share a sign: 6e-6 for the 32,768-long batch sums of dWf and dbf, less for
+# the blocked sums of the conv gradients.  An fc1 ReLU whose pre-activation
+# lies within BWD_TOL of its own |terms| sum may fall either way in float32;
+# the whole of every term behind such a ReLU is added to the limit.
+BWD_TOL = 1e-5
+# The first minibatch's parameter gradients through the kernels against the
+# plain path's: the forward kernel's features differ from cuDNN's by up to
+# TRUNK_ATOL, which moves every cotangent of the loss; each leaf within
+# GRAD_ATOL of its largest value, and within GRAD_NORM in relative 2-norm.
+GRAD_ATOL = 1e-3
+GRAD_NORM = 1e-4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM and non-tensor float32.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -68,11 +91,44 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(fn, device):
+    """(fn(), device ms from CUDA events); the time is None off the card."""
+    import torch
+
+    if device.type != "cuda":
+        return fn(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """Least time in ms for moving ``nbytes`` and doing ``ops`` f32 ops."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def trunk_ops(frames: int, beams: int) -> tuple[int, int]:
+    """Float32 operations (FMA = 2) of one sample through one trunk: the
+    forward, and the backward with its recomputed forward."""
+    l1 = (beams - 3) // 2 + 1
+    l2 = (l1 - 1) // 2 + 1
+    taps1 = sum(1 for l in range(l1) for k in range(5)
+                if 0 <= 2 * l + k - 1 < beams)
+    taps2 = sum(1 for m in range(l2) for k in range(3)
+                if 0 <= 2 * m + k - 1 < l1)
+    conv1, conv2, fc1 = 2 * 32 * frames * taps1, 2 * 32 * 32 * taps2, \
+        2 * 256 * 32 * l2
+    fwd = conv1 + conv2 + fc1 + 2 * 32 * (l1 + l2) + 2 * 256
+    # dWf and dflat (fc1-sized each), dW2 and the transposed conv2
+    # (conv2-sized each), dW1 (conv1-sized), the ReLU masks and bias sums
+    bwd = fwd + 2 * fc1 + 2 * conv2 + conv1 + 2 * (256 + 32 * (l1 + l2))
+    return fwd, bwd
 
 
 @phase("device")
@@ -124,7 +180,7 @@ def stage1_test_poses(env, arenas: int):
 
 
 @phase("lidar kernel vs plain")
-def check_lidar(device):
+def check_lidar(device, arenas: int):
     import torch
 
     from rl_collision_avoidance_torch.engine.celltable import lookup_cells
@@ -135,7 +191,7 @@ def check_lidar(device):
     spec = stage1()
     env = Env(spec, device=device, seed=SEED)
     t = env.lidar_table
-    pose = stage1_test_poses(env, ARENAS)
+    pose = stage1_test_poses(env, arenas)
     args = (env._lidar_cells, t.lo, t.cell, t.shape, env.local_dirs,
             spec.robot_radius, spec.max_range)
     got = lidar_cuda.lidar_obs(pose, *args)
@@ -163,7 +219,7 @@ def check_lidar(device):
     record = {"name": "lidar_obs", "route": "cuda",
               "source": "rl_collision_avoidance_torch/ops/csrc/lidar.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/lidar_pallas.py:35",
-              "max_abs_err": err, "library_ms": None}
+              "batch": a * n, "max_abs_err": err, "library_ms": None}
     if device.type == "cuda":
         record["ms"] = time_ms(lambda: lidar_cuda.lidar_obs(pose, *args), 50)
         record["plain_ms"] = time_ms(
@@ -173,7 +229,7 @@ def check_lidar(device):
 
 
 @phase("trunk kernel vs plain")
-def check_trunk(device):
+def check_trunk(device, batch: int):
     import torch
     import torch.nn.functional as F
 
@@ -185,8 +241,9 @@ def check_trunk(device):
     spec = stage1()
     policy = load_policy(PARAMS, device=device)
     env = Env(spec, device=device, seed=SEED + 1)
-    _, obs = env.reset(ARENAS)
-    scans = obs.scans.reshape(-1, spec.laser_frames, spec.n_beams)
+    _, obs = env.reset(-(-batch // spec.n_robots))
+    scans = obs.scans.reshape(-1, spec.laser_frames,
+                              spec.n_beams)[:batch].contiguous()
     act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
     with torch.no_grad():
         got = trunk_cuda.twin_trunks(scans, act, crt)
@@ -200,25 +257,18 @@ def check_trunk(device):
                              f"by {err} (atol {TRUNK_ATOL}, rtol "
                              f"{TRUNK_RTOL})")
     b, frames, beams = scans.shape
-    print(f"trunk: max |kernel - plain| = {err:.3g} on B = {b} (tile 10, so "
-          f"the last block is ragged), features up to "
+    print(f"trunk: max |kernel - plain| = {err:.3g} on B = {b} (tile 10: "
+          f"{b % 10 or 10} samples in the last block), features up to "
           f"{float(want.abs().max()):.3g}", flush=True)
 
-    l1 = (beams - 3) // 2 + 1
-    l2 = (l1 - 1) // 2 + 1
-    taps1 = sum(1 for l in range(l1) for k in range(5)
-                if 0 <= 2 * l + k - 1 < beams)
-    taps2 = sum(1 for m in range(l2) for k in range(3)
-                if 0 <= 2 * m + k - 1 < l1)
-    per_sample = (2 * 32 * frames * taps1 + 2 * 32 * 32 * taps2
-                  + 2 * 256 * 32 * l2 + 2 * 32 * (l1 + l2) + 2 * 256)
+    per_sample, _ = trunk_ops(frames, beams)
     ops = 2 * b * per_sample              # two trunks; FMA = 2 ops
     nbytes = 4 * (scans.numel() + sum(w.numel() for w in (*act, *crt))
                   + got.numel())
     record = {"name": "twin_trunks", "route": "cuda",
               "source": "rl_collision_avoidance_torch/ops/csrc/trunk_fwd.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/trunk_pallas.py:147",
-              "max_abs_err": err}
+              "batch": b, "max_abs_err": err}
 
     def library():  # the bare cuDNN / cuBLAS calls, exact float32
         with trunk_cuda.exact_float32():
@@ -255,6 +305,7 @@ def run_slice(device, card: str):
     gen.manual_seed(SEED + 1)
 
     lidar_cuda.launches = trunk_cuda.launches = 0
+    trunk_cuda.launches_by_batch.clear()
     state, obs = env.reset(ARENAS)
     state, obs, warm = bench.run_acting(env, policy, state, obs, WARMUP_STEPS,
                                         gen)
@@ -268,16 +319,18 @@ def run_slice(device, card: str):
     if on_card:
         end.record()
         torch.cuda.synchronize()
-    launches = {"lidar_obs": lidar_cuda.launches,
-                "twin_trunks": trunk_cuda.launches}
-
     robots = ARENAS * spec.n_robots
+    launches = {("lidar_obs", robots): lidar_cuda.launches,
+                **{("twin_trunks", b): n for b, n in
+                   trunk_cuda.launches_by_batch.items()}}
+
     ends = (warm["ends"] + stats["ends"]).tolist()
     goal, crash, timeout = ends[1:]
     finite = bool(warm["finite"] & stats["finite"])
     print(f"slice: {WARMUP_STEPS} + {SLICE_STEPS} steps of {ARENAS} arenas "
           f"x {spec.n_robots} robots; episode ends goal {goal} crash {crash} "
-          f"timeout {timeout}; kernel launches {launches}", flush=True)
+          f"timeout {timeout}; kernel launches (name, batch): "
+          f"{launches}", flush=True)
     if on_card:
         seconds = start.elapsed_time(end) / 1e3
         print(f"slice: {robots * SLICE_STEPS / seconds:.1f} robot-steps/s "
@@ -285,8 +338,11 @@ def run_slice(device, card: str):
               f"{torch.cuda.get_device_name(device)} [{card}]", flush=True)
     if not finite:
         raise AssertionError("non-finite reward or observation in the slice")
-    if on_card and not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if on_card and not (launches[("lidar_obs", robots)]
+                        and set(launches) == {("lidar_obs", robots),
+                                              ("twin_trunks", robots)}):
+        raise AssertionError(f"a kernel of the path never ran, or ran at "
+                             f"another batch: {launches}")
     ended = goal + crash + timeout
     if ended == 0 or goal / ended < 0.5:
         raise AssertionError(f"the trained stage-1 policy reached the goal in "
@@ -335,6 +391,265 @@ def compare_plain_step(env, policy, state, obs):
         raise AssertionError(f"the kernel path left the plain path: {errs}")
 
 
+def trunk_grads_limits(scans, act, crt, g):
+    """For each trunk, two tuples of six float64 limits for the weight
+    gradients' float32 rounding: the sum of the absolute values of each
+    gradient's terms, and what the fc1 ReLUs that float32 may turn either way
+    contribute.
+
+    The first is the backward on absolute values: |g|, |W|, and in place of
+    each activation the sum of the absolute values of its forward terms,
+    which bounds the activation's own rounding as well; a ReLU whose
+    pre-activation lies within BWD_TOL of that sum counts as open.  An fc1
+    ReLU that near zero may flip, and then moves its whole term (one of the
+    batch's 32,768); a conv ReLU flip moves one term of millions."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv1d_input, conv1d_weight
+
+    x = scans.double()
+    xa = x.abs()
+    out = []
+    for t, ws in enumerate((act, crt)):
+        w1, b1, w2, b2, wf, bf = (w.double() for w in ws)
+        open_ = lambda z, za: z > -BWD_TOL * za
+        z1 = F.conv1d(x, w1, b1, stride=2, padding=1)
+        z1a = F.conv1d(xa, w1.abs(), b1.abs(), stride=2, padding=1)
+        m1 = open_(z1, z1a)
+        y1a = z1a * m1
+        z2 = F.conv1d(z1.clamp(min=0), w2, b2, stride=2, padding=1)
+        z2a = F.conv1d(y1a, w2.abs(), b2.abs(), stride=2, padding=1)
+        m2 = open_(z2, z2a)
+        flat_a = (z2a * m2).flatten(1)
+        z3 = F.linear(z2.clamp(min=0).flatten(1), wf, bf)
+        z3a = F.linear(flat_a, wf.abs(), bf.abs())
+        ga = g[t].double().abs()
+
+        def back(g1):  # the weight gradients of the absolute-value trunk
+            g2 = (g1 @ wf.abs()).view_as(z2) * m2
+            g3 = conv1d_input(z1.shape, w2.abs(), g2, stride=2,
+                              padding=1) * m1
+            return (conv1d_weight(xa, w1.shape, g3, stride=2, padding=1),
+                    g3.sum((0, 2)),
+                    conv1d_weight(y1a, w2.shape, g2, stride=2, padding=1),
+                    g2.sum((0, 2)), g1.T @ flat_a, g1.sum(0))
+
+        near = z3.abs() <= BWD_TOL * z3a
+        out.append((back(ga * open_(z3, z3a)), back(ga * near)))
+        print(f"trunk backward: trunk {t}: {int(near.sum())} of "
+              f"{near.numel()} fc1 pre-activations within {BWD_TOL} of "
+              f"their |terms| sum", flush=True)
+    return out
+
+
+@phase("trunk backward kernel vs plain")
+def check_trunk_bwd(device):
+    import torch
+    import torch.nn.functional as F
+
+    from rl_collision_avoidance_torch import bench
+    from rl_collision_avoidance_torch.engine.env import Env
+    from rl_collision_avoidance_torch.models import load_policy
+    from rl_collision_avoidance_torch.ops import trunk_cuda
+    from rl_collision_avoidance_torch.worlds import stage1
+
+    spec = stage1()
+    policy = load_policy(PARAMS, device=device)
+    env = Env(spec, device=device, seed=SEED + 2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    # stage-1 scans with three distinct frames: two acting steps after reset
+    state, obs = env.reset(-(-BWD_BATCH // spec.n_robots))
+    _, obs, _ = bench.run_acting(env, policy, state, obs, 2, gen)
+    scans = obs.scans.reshape(-1, spec.laser_frames,
+                              spec.n_beams)[:BWD_BATCH].contiguous()
+    g = torch.randn((2, BWD_BATCH, 256), generator=gen, device=device)
+    act = [w.detach() for w in policy.trunk_weights("act")]
+    crt = [w.detach() for w in policy.trunk_weights("crt")]
+    names = [f"{t}.{n}" for t in ("act", "crt")
+             for n in trunk_cuda.WEIGHT_NAMES]
+    flat = lambda pair: [*pair[0], *pair[1]]
+
+    got = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g))
+    again = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g))
+    plain = flat(trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g))
+    want = flat(trunk_cuda.twin_trunks_grads_plain(
+        scans.double(), [w.double() for w in act], [w.double() for w in crt],
+        g.double()))
+    if device.type == "cuda":
+        torch.cuda.synchronize()  # a fault inside the kernel surfaces here
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two launches of the trunk backward kernel on "
+                             "the same inputs differ")
+    scale, near = (flat(x) for x in zip(*trunk_grads_limits(
+        scans, act, crt, g)))
+    worst = {"kernel": 0.0, "plain": 0.0}
+    for name, k, p, w, sc, nz in zip(names, got, plain, want, scale, near):
+        limit = BWD_TOL * sc + nz
+        for who, v in (("kernel", k), ("plain", p)):
+            r = float(((v.double() - w).abs() / limit.clamp(min=1e-30)).max())
+            worst[who] = max(worst[who], r)
+        if not (bool(torch.isfinite(k).all())
+                and bool(((k.double() - w).abs() <= limit).all())):
+            raise AssertionError(f"trunk backward kernel differs from the "
+                                 f"float64 plain version on {name} by more "
+                                 f"than {BWD_TOL} of its |terms| sum")
+    err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
+    top = max(float(w.abs().max()) for w in want)
+    print(f"trunk backward: B = {BWD_BATCH}; worst |error| / limit against "
+          f"the float64 plain version: kernel {worst['kernel']:.3g}, float32 "
+          f"plain version {worst['plain']:.3g}; max |kernel - plain| = "
+          f"{err:.3g} with gradients up to {top:.3g}; two launches "
+          f"bit-equal", flush=True)
+
+    b, frames, beams = scans.shape
+    _, per_sample = trunk_ops(frames, beams)
+    nbytes = 4 * (scans.numel() + g.numel()
+                  + 2 * sum(w.numel() for w in (*act, *crt)))
+    record = {"name": "twin_trunks_grads", "route": "cuda",
+              "source": "rl_collision_avoidance_torch/ops/csrc/trunk_bwd.cu",
+              "replaces": "rl_collision_avoidance_tpu/ops/trunk_pallas.py:155",
+              "batch": b, "max_abs_err": err}
+
+    def library():  # autograd through the bare cuDNN / cuBLAS calls
+        ws = [w.detach().requires_grad_() for w in (*act, *crt)]
+        with trunk_cuda.exact_float32():
+            outs = []
+            for w1, b1, w2, b2, wf, bf in (ws[:6], ws[6:]):
+                y = F.relu(F.conv1d(scans, w1, b1, stride=2, padding=1))
+                y = F.relu(F.conv1d(y, w2, b2, stride=2, padding=1))
+                outs.append(F.relu(F.linear(y.flatten(1), wf, bf)))
+            torch.autograd.grad(outs, ws, (g[0], g[1]))
+
+    if device.type == "cuda":
+        record["ms"] = time_ms(
+            lambda: trunk_cuda.twin_trunks_grads(scans, act, crt, g), 5, 1)
+        record["plain_ms"] = time_ms(
+            lambda: trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g), 5,
+            1)
+        record["library_ms"] = time_ms(library, 5, 1)
+    record["bound_ms"], record["bound_by"] = bound(nbytes,
+                                                   2 * b * per_sample)
+    return record
+
+
+@phase("stage-1 training slice")
+def run_training(device, card: str):
+    import torch
+
+    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+    from rl_collision_avoidance_torch.train import TrainConfig, Trainer
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+
+    cfg = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED)
+    tr = Trainer(cfg, device=device)
+    state = tr.init_state()
+    state.policy.load_state_dict(jax_params_to_torch(load_jax_npz(PARAMS)))
+    start_params = [p.detach().clone() for p in state.policy.parameters()]
+
+    lidar_cuda.launches = trunk_cuda.launches = trunk_cuda.bwd_launches = 0
+    trunk_cuda.launches_by_batch.clear()
+    updates, update_ms = [], []
+    for _ in range(1 + TRAIN_UPDATES):
+        (state, m), ms = timed(lambda: tr.train_step(state), device)
+        updates.append(m)
+        update_ms.append(ms)
+    robots, mb = TRAIN_ARENAS * tr.spec.n_robots, cfg.ppo.batch_size
+    launches = {("lidar_obs", robots): lidar_cuda.launches,
+                **{("twin_trunks", b): n for b, n in
+                   trunk_cuda.launches_by_batch.items()},
+                ("twin_trunks_grads", mb): trunk_cuda.bwd_launches}
+
+    steps = updates[0]["env_steps"]
+    keys = ("policy_loss", "value_loss", "entropy", "episodes", "reached",
+            "crashed", "reward_mean")
+    for i, (m, ms) in enumerate(zip(updates, update_ms)):
+        tag = "warm-up" if i == 0 else f"timed {i}"
+        rate = "" if ms is None else (f"; {ms:.1f} ms, "
+                                      f"{steps / ms * 1e3:.1f} robot-steps/s")
+        print(f"training: update {i + 1} ({tag}): "
+              + ", ".join(f"{k} {m[k]:.6g}" for k in keys) + rate, flush=True)
+    (_, traj, last_value), rollout_ms = timed(lambda: tr._rollout(state),
+                                              device)
+    print(f"training: {TRAIN_ARENAS} arenas x {tr.spec.n_robots} robots x "
+          f"horizon {cfg.horizon} = {steps} samples/update, "
+          f"{steps // mb * cfg.ppo.epochs} PPO steps of {mb}; kernel "
+          f"launches (name, batch): {launches}", flush=True)
+    if device.type == "cuda":
+        best = min(update_ms[1:])
+        print(f"training: best timed update {best:.1f} ms = "
+              f"{steps / best * 1e3:.1f} robot-steps/s (CUDA events); a "
+              f"rollout alone {rollout_ms:.1f} ms, so PPO ~"
+              f"{best - rollout_ms:.1f} ms; on "
+              f"{torch.cuda.get_device_name(device)} [{card}]", flush=True)
+
+    finite = all(torch.isfinite(torch.tensor(m[k])) for m in updates
+                 for k in ("policy_loss", "value_loss", "entropy"))
+    if not finite:
+        raise AssertionError("non-finite loss in the training slice")
+    moved = max(float((p.detach() - q).abs().max()) for p, q in
+                zip(state.policy.parameters(), start_params))
+    if not moved > 0:
+        raise AssertionError("training left the parameters where they were")
+    n_up = 1 + TRAIN_UPDATES
+    steps_per_update = steps // mb * cfg.ppo.epochs
+    # the rollout's horizon acting steps and its bootstrap at one arena
+    # batch each, one forward and one backward for each PPO minibatch
+    if device.type == "cuda" and launches != {
+            ("lidar_obs", robots): n_up * cfg.horizon,
+            ("twin_trunks", robots): n_up * (cfg.horizon + 1),
+            ("twin_trunks", mb): n_up * steps_per_update,
+            ("twin_trunks_grads", mb): n_up * steps_per_update}:
+        raise AssertionError(f"a kernel of the training path did not run as "
+                             f"often as it should: {launches}")
+    goal = sum(m["reached"] for m in updates)
+    ended = sum(m["episodes"] for m in updates)
+    if ended == 0 or goal / ended < 0.5:
+        raise AssertionError(f"the warm-started policy reached the goal in "
+                             f"{goal} of {ended} episodes (< 50%)")
+    print(f"training: goal share {goal / ended:.3f} of {ended:.0f} ended "
+          f"episodes", flush=True)
+    compare_minibatch_grads(tr, state, traj, last_value)
+    return launches
+
+
+def compare_minibatch_grads(tr, state, traj, last_value):
+    """The parameter gradients of one stage-1 minibatch's PPO loss through
+    the kernels (TwinTrunks) against autograd through the plain trunks."""
+    import torch
+
+    from rl_collision_avoidance_torch.algo.ppo import Batch, ppo_loss
+    from rl_collision_avoidance_torch.ops import trunk_cuda
+
+    cfg, policy = tr.cfg.ppo, state.policy
+    batch = tr._batch(traj, last_value)
+    idx = torch.randperm(batch.scans.shape[0], generator=state.generator,
+                         device=tr.device)[:cfg.batch_size]
+    mb = Batch(*(x[idx] for x in batch))
+    params = list(policy.parameters())
+    got = torch.autograd.grad(ppo_loss(policy, mb, cfg)[0], params)
+    act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
+    plain = lambda s, g, sp: policy.heads(
+        trunk_cuda.twin_trunks_plain(s, act, crt), g, sp)
+    with trunk_cuda.exact_float32():
+        want = torch.autograd.grad(ppo_loss(plain, mb, cfg)[0], params)
+    worst_el, worst_norm = 0.0, 0.0
+    for (name, _), a, b in zip(policy.named_parameters(), got, want):
+        scale = float(b.abs().max())
+        el = float((a - b).abs().max()) / max(scale, 1e-30)
+        nrm = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        worst_el, worst_norm = max(worst_el, el), max(worst_norm, nrm)
+        if not (el <= GRAD_ATOL and nrm <= GRAD_NORM):
+            raise AssertionError(f"minibatch gradient of {name} through the "
+                                 f"kernels differs from the plain path's: "
+                                 f"{el:.3g} of its largest value, {nrm:.3g} "
+                                 f"in relative 2-norm")
+    print(f"training: minibatch of {cfg.batch_size}: gradients through the "
+          f"kernels vs the plain path: worst leaf {worst_el:.3g} of its "
+          f"largest value (limit {GRAD_ATOL}), {worst_norm:.3g} in relative "
+          f"2-norm (limit {GRAD_NORM})", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "rl_collision_avoidance_torch").is_dir():
         print("chip_smoke.py: the rl_collision_avoidance_torch package is not "
@@ -351,12 +666,25 @@ def main() -> int:
     name, label = check_device()
     device = torch.device("cuda", 0)
     build_kernels()
-    kernels = [check_lidar(device), check_trunk(device)]
-    launches = run_slice(device, label)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    from rl_collision_avoidance_torch.worlds import stage1
+
+    # each kernel at every batch the two paths give it
+    robots = stage1().n_robots
+    checks = [check_lidar(device, ARENAS), check_lidar(device, TRAIN_ARENAS),
+              check_trunk(device, ARENAS * robots),
+              check_trunk(device, TRAIN_ARENAS * robots),
+              check_trunk(device, BWD_BATCH), check_trunk_bwd(device)]
+    records = {(r["name"], r["batch"]): r for r in checks}
+    paths = [("acting", run_slice(device, label)),
+             ("training", run_training(device, label))]
+    keys = ("name", "path", "batch", "route", "source", "replaces",
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    kernels = [{**records[key], "path": path, "launches": n}
+               for path, launches in paths for key, n in launches.items()]
+    if {(k["name"], k["batch"]) for k in kernels} != set(records):
+        raise AssertionError("a checked shape is not on a path, or a path's "
+                             "shape was not checked")
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))

@@ -1,15 +1,19 @@
-"""Acting benchmark of the port: stage-1 policy forward, Gaussian sample
-and env step, batched over arenas, timed on the CUDA card.
+"""Benchmarks of the port on the CUDA card: stage-1 acting (policy
+forward, Gaussian sample and env step, batched over arenas) and, with
+``--train``, stage-1 training updates.
 
-Counterpart of the acting mode of ``rl_collision_avoidance_tpu/bench.py``
-(its ``one_step``).  The time comes from CUDA events around a run of steps
-that starts after a warm-up, and is printed with the card's name and power
-limit.  ``--profile`` instead traces a short window with torch.profiler
-and prints where the device time goes, by kernel, and the device's idle
-share of the window.  Usage::
+Counterparts of the acting mode of ``rl_collision_avoidance_tpu/bench.py``
+(its ``one_step``) and of its ``measure_training``.  Times come from CUDA
+events around work that starts after a warm-up, and are printed with the
+card's name and power limit.  ``--profile`` instead traces a window with
+torch.profiler and prints where the device time goes and the device's idle
+share of the window: by kernel for acting, by phase of the update (rollout,
+GAE, PPO forward, trunk backward kernel, the rest of autograd, Adam) for
+training.  Usage::
 
     python -m rl_collision_avoidance_torch.bench --arenas 128 --steps 256
     python -m rl_collision_avoidance_torch.bench --profile --steps 20
+    python -m rl_collision_avoidance_torch.bench --train [--profile] --arenas 32
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from .engine.env import Env, EnvState, Obs
 from .models import distributions
 from .models.policy import CNNPolicy, load_policy
+from .train import TrainConfig, Trainer
 from .utils.device import card_label
 from .worlds import get_world
 
@@ -142,20 +147,121 @@ def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
             "card": card_label()}
 
 
+def _trainer(arenas: int, world: str, seed: int):
+    """A stage-1 trainer on the card and its state after one warm-up
+    update (random init, as the JAX package's ``measure_training``)."""
+    trainer = Trainer(TrainConfig.stage1(n_arenas=arenas, world=world,
+                                         seed=seed))
+    state, _ = trainer.train_step(trainer.init_state())
+    return trainer, state
+
+
+def measure_training(arenas: int = 32, repeats: int = 3,
+                     world: str = "stage1", seed: int = 0) -> dict:
+    """Stage-1 training robot-steps/s: the best of ``repeats`` updates
+    (rollout + GAE + PPO), each timed with CUDA events."""
+    trainer, state = _trainer(arenas, world, seed)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(repeats):
+        start.record()
+        state, metrics = trainer.train_step(state)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    steps = metrics["env_steps"]
+    return {"metric": "stage1_training_steps_per_s",
+            "value": steps / min(times) * 1e3, "unit": "robot-steps/s",
+            "arenas": arenas, "env_steps_per_update": steps,
+            "update_ms": times, "device": torch.cuda.get_device_name(),
+            "card": card_label()}
+
+
+#: Phases of an update, as marked by record_function in train/trainer.py,
+#: algo/ppo.py and ops/trunk_cuda.py (TwinTrunks.backward).  The rest of the
+#: backward runs on the autograd engine's threads, outside every range.
+TRAIN_PHASES = ("rollout", "gae", "ppo_forward", "twin_trunks_grads", "adam")
+
+
+def profile_training(arenas: int = 32, world: str = "stage1",
+                     seed: int = 0) -> dict:
+    """Device ms of one traced update by phase, and the device's idle share
+    of the update's wall time.
+
+    The trace holds each phase range twice: on the host, and on the device
+    as the span from the first to the last operation it launched.  All work
+    runs on one stream in launch order, so a device operation belongs to the
+    innermost phase span that contains its start; one inside none is the
+    rest of autograd (``autograd_other``)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    trainer, state = _trainer(arenas, world, seed)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        start.record()
+        trainer.train_step(state)
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name)
+                    for e in device if e.name in TRAIN_PHASES),
+                   key=lambda s: s[1] - s[0])
+    ops = [e for e in device if e.name not in TRAIN_PHASES]
+    phases = dict.fromkeys((*TRAIN_PHASES, "autograd_other"), 0.0)
+    kernels = {}
+    for e in ops:
+        t0, ms = e.time_range.start, e.time_range.elapsed_us() / 1e3
+        phase = next((name for lo, hi, name in spans if lo <= t0 <= hi),
+                     "autograd_other")
+        phases[phase] += ms
+        key = f"{phase}: {e.name[:70]}"
+        total, count = kernels.get(key, (0.0, 0))
+        kernels[key] = (total + ms, count + 1)
+    busy_ms = sum(phases.values())
+    return {"world": world, "arenas": arenas, "update_ms": window_ms,
+            "device_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / window_ms,
+            "phase_device_ms": phases, "device_ops": len(ops),
+            "top_kernels_ms_launches": dict(sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])[:12]),
+            "device": torch.cuda.get_device_name(), "card": card_label()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arenas", type=int, default=128)
+    ap.add_argument("--arenas", type=int, default=None,
+                    help="arenas (default 128 acting, 32 training)")
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--warmup", type=int, default=16)
     ap.add_argument("--world", default="stage1")
     ap.add_argument("--params", default=DEFAULT_PARAMS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace the window and report device time by kernel")
+                    help="trace the window and report device time by kernel "
+                         "(acting) or by phase (--train)")
+    ap.add_argument("--train", action="store_true",
+                    help="time stage-1 training updates (random init) "
+                         "instead of acting; --arenas defaults to 32")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timed updates with --train (the best is reported)")
     args = ap.parse_args(argv)
-    run = profile if args.profile else measure
-    print(json.dumps(run(args.arenas, args.steps, args.warmup, args.world,
-                         args.params, args.seed)))
+    if args.train:
+        arenas = args.arenas or 32
+        out = (profile_training(arenas, args.world, args.seed) if args.profile
+               else measure_training(arenas, args.repeats, args.world,
+                                     args.seed))
+        print(out.pop("card"))
+    else:
+        run = profile if args.profile else measure
+        out = run(args.arenas or 128, args.steps, args.warmup, args.world,
+                  args.params, args.seed)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ import dataclasses
 
 import torch
 
-from ..ops.lidar_cuda import lidar_obs, lidar_obs_plain
+from ..ops import lidar_cuda   # a module: ops/lidar_cuda.py imports this package
 from ..utils.device import resolve_device
 from ..worlds.spec import ResetMode, WorldSpec
 from . import physics, sampling
@@ -64,6 +64,10 @@ class Obs:
 @dataclasses.dataclass
 class StepInfo:
     result: torch.Tensor     # (A, N) int result code of this step
+    # (A, N) bool: the transition is usable for training, i.e. the robot was
+    # alive at the step's start.  No robot of a RANDOM_DISC world ever dies,
+    # so it is all True here; stage 2's dead robots will clear it.
+    valid: torch.Tensor
     ep_return: torch.Tensor  # (A, N) episode return where an episode ended
     reached: torch.Tensor    # (A, N) bool reached-goal event
     crashed: torch.Tensor    # (A, N) bool crash event
@@ -107,7 +111,8 @@ class Env:
         self._wall_cells = as_tensor(self.wall_table.table)
         self.local_dirs = as_tensor(beam_directions_local(spec.n_beams,
                                                           spec.fov))
-        self._scan = lidar_obs if use_kernels else lidar_obs_plain
+        self._scan = (lidar_cuda.lidar_obs if use_kernels
+                      else lidar_cuda.lidar_obs_plain)
 
     # ------------------------------------------------------------------
 
@@ -220,7 +225,7 @@ class Env:
             step=torch.where(terminal, 0, steps).to(torch.int32),
             scan_hist=scan_hist,
             ep_return=torch.where(terminal, 0.0, ep_return_now))
-        info = StepInfo(result=result,
+        info = StepInfo(result=result, valid=torch.ones_like(terminal),
                         ep_return=torch.where(terminal, ep_return_now, 0.0),
                         reached=reached, crashed=crashed)
         return new_state, self.obs(new_state), reward, terminal, info

@@ -5,10 +5,13 @@ Counterpart of ``rl_collision_avoidance_tpu/models/policy.py::CNNPolicy``
 in the reference PyTorch layout: Conv1d over (batch, frames, beams), a
 channel-major flatten, and the reference parameter names, so
 ``utils/params.py`` maps the JAX package's trained weights straight in.
-The two feature trunks run through ``ops/trunk_cuda.py::twin_trunks`` (the
-hand-written kernel on CUDA, its plain version on the CPU); the dense tail,
-fc2 and the heads, stays ordinary PyTorch, as it stays outside the kernel
-in the JAX package.
+The two feature trunks run through ``ops/trunk_cuda.py::twin_trunks``: on
+CUDA the hand-written forward kernel, and where autograd needs the weights'
+gradients the ``TwinTrunks`` Function, which pairs it with the backward
+kernel (the JAX package's ``apply_impl="pallas"``); on the CPU their plain
+versions.  The dense tail, fc2 and the heads, and ``logstd`` stay ordinary
+PyTorch and autograd, as they stay outside the kernels in the JAX package
+(``cnn_pallas_apply``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with one plain ``nvcc`` call and load them.
 
 Every ``ops/csrc/*.cu`` source goes into one shared library with a C
-interface, loaded with ``ctypes``.  The library lands in
+interface, loaded with ``ctypes``; ``*.cuh`` headers beside them are shared
+between sources.  The library lands in
 ``rl_collision_avoidance_torch/_build/<hash>/`` (listed in ``.gitignore``),
-keyed by a hash of the sources and flags, so a changed source rebuilds and
+keyed by a hash of the sources, headers and flags, so a changed source rebuilds and
 an unchanged one loads at once.  The finished library is moved into place
 with one rename: no lock file, so an interrupted build leaves nothing that
 blocks the next one.  Building needs the CUDA toolkit (``nvcc``) and runs
@@ -43,9 +44,9 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(srcs) -> str:
+def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in sorted(CSRC.glob("*.cu*")):    # sources and headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -56,7 +57,7 @@ def build() -> Path:
     return its path.  Prints the seconds taken and ``-Xptxas -v``'s register,
     shared-memory and spill lines when it compiles."""
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib

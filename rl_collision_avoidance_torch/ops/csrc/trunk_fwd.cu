@@ -28,25 +28,19 @@
 // cuBLAS's, which the tolerance in chip_smoke.py accounts for.
 #include <cuda_runtime.h>
 
+#include "trunk_conv.cuh"
+
 namespace {
 
-constexpr int kC = 32;         // conv channels
-constexpr int kH = 256;        // fc1 width
+using trunk::kC;
+using trunk::kH;
+using trunk::Trunk;
+using trunk::conv1_len;
+using trunk::conv2_len;
+
 constexpr int kThreads = 512;  // 16 warps
 constexpr int kTile = 10;      // samples per block; 3,072 is not a multiple
 constexpr int kJ = 2;          // fc1 outputs per warp pass
-
-struct Trunk {
-  const float* w1;  // (32, F, 5)
-  const float* b1;  // (32,)
-  const float* w2;  // (32, 32, 3)
-  const float* b2;  // (32,)
-  const float* wf;  // (256, 32 * L2)
-  const float* bf;  // (256,)
-};
-
-__host__ __device__ inline int conv1_len(int beams) { return (beams - 3) / 2 + 1; }
-__host__ __device__ inline int conv2_len(int l1) { return (l1 - 1) / 2 + 1; }
 
 inline size_t smem_floats(int frames, int beams) {
   const int l1 = conv1_len(beams);
@@ -77,48 +71,15 @@ __global__ void __launch_bounds__(kThreads)
   float* y1 = xs + frames * beams;  // (32, L1) one sample
   float* y2 = y1 + kC * l1;      // (kTile, 32 * L2) flattened conv2 outputs
 
-  for (int i = tid; i < kC * frames * 5; i += kThreads) w1[i] = p.w1[i];
-  for (int i = tid; i < kC * kC * 3; i += kThreads) w2[i] = p.w2[i];
-  for (int i = tid; i < kC; i += kThreads) {
-    b1[i] = p.b1[i];
-    b2[i] = p.b2[i];
-  }
+  trunk::load_conv_weights(p, w1, b1, w2, b2, frames, tid, kThreads);
 
   for (int s = 0; s < nb; ++s) {
     const float* xb = x + static_cast<size_t>(b0 + s) * frames * beams;
     for (int i = tid; i < frames * beams; i += kThreads) xs[i] = xb[i];
     __syncthreads();
-    for (int o = tid; o < kC * l1; o += kThreads) {
-      const int c = o / l1;
-      const int l = o - c * l1;
-      float acc = b1[c];
-      for (int ci = 0; ci < frames; ++ci) {
-        const float* wr = w1 + (c * frames + ci) * 5;
-        const float* xr = xs + ci * beams;
-#pragma unroll
-        for (int t = 0; t < 5; ++t) {
-          const int idx = 2 * l + t - 1;
-          if (idx >= 0 && idx < beams) acc = fmaf(wr[t], xr[idx], acc);
-        }
-      }
-      y1[o] = fmaxf(acc, 0.0f);
-    }
+    trunk::conv1_relu(xs, w1, b1, y1, frames, beams, tid, kThreads);
     __syncthreads();
-    for (int o = tid; o < flat; o += kThreads) {
-      const int c = o / l2;
-      const int m = o - c * l2;
-      float acc = b2[c];
-      for (int ci = 0; ci < kC; ++ci) {
-        const float* wr = w2 + (c * kC + ci) * 3;
-        const float* yr = y1 + ci * l1;
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          const int idx = 2 * m + t - 1;
-          if (idx >= 0 && idx < l1) acc = fmaf(wr[t], yr[idx], acc);
-        }
-      }
-      y2[s * flat + o] = fmaxf(acc, 0.0f);
-    }
+    trunk::conv2_relu(y1, w2, b2, y2 + s * flat, l1, tid, kThreads);
     // The next sample overwrites xs only after this barrier, and y1 only
     // after the next one, when every thread has finished reading both.
   }

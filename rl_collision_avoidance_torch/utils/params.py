@@ -1,4 +1,4 @@
-"""Carry trained weights from the JAX package into the port.
+"""Carry trained weights between the JAX package and the port.
 
 ``load_jax_npz`` reads a ``save_params_npz`` file of the JAX package (one
 array per flax leaf, keyed by its key path, e.g.
@@ -11,6 +11,10 @@ reference PyTorch network's:
 * flax Dense kernel (in, out)    ->  torch Linear weight (out, in);
 * the post-conv flatten differs: flax flattens (L, C) length-major, torch
   flattens (C, L) channel-major, so fc1's input axis is permuted.
+
+``torch_to_jax_params`` is the inverse mapping and ``save_params_npz``
+writes the JAX file format, so a policy trained by the port loads into the
+JAX package (``utils/checkpoint.py::load_params_npz``) and back.
 """
 from __future__ import annotations
 
@@ -66,3 +70,46 @@ def jax_params_to_torch(params: dict) -> dict:
         out[f"{name}.bias"] = np.asarray(p[name]["bias"])
     return {k: torch.tensor(np.ascontiguousarray(v, np.float32))
             for k, v in out.items()}
+
+
+def torch_to_jax_params(state_dict: dict) -> dict:
+    """The port's ``CNNPolicy`` state dict -> the JAX params tree
+    ``{"params": {...}}`` of float32 numpy arrays; inverse of
+    :func:`jax_params_to_torch`."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+          else np.asarray(v) for k, v in state_dict.items()}
+    conv = lambda w: np.transpose(w, (2, 1, 0))
+    p: dict = {"logstd": sd["logstd"]}
+    for pre in ("act", "crt"):
+        fc1 = sd[f"{pre}_fc1.weight"]                       # (256, C * L)
+        perm = _flat_perm(fc1.shape[1] // _CHANNELS)
+        p[f"{pre}_trunk"] = {
+            "Conv_0": {"kernel": conv(sd[f"{pre}_fea_cv1.weight"]),
+                       "bias": sd[f"{pre}_fea_cv1.bias"]},
+            "Conv_1": {"kernel": conv(sd[f"{pre}_fea_cv2.weight"]),
+                       "bias": sd[f"{pre}_fea_cv2.bias"]},
+            "Dense_0": {"kernel": fc1[:, perm].T,
+                        "bias": sd[f"{pre}_fc1.bias"]}}
+    for name in ("act_fc2", "actor1", "actor2", "crt_fc2", "critic"):
+        p[name] = {"kernel": sd[f"{name}.weight"].T,
+                   "bias": sd[f"{name}.bias"]}
+    as_f32 = lambda t: ({k: as_f32(v) for k, v in t.items()}
+                        if isinstance(t, dict)
+                        else np.ascontiguousarray(t, np.float32))
+    return {"params": as_f32(p)}
+
+
+def save_params_npz(path, params: dict) -> None:
+    """Write a params tree (e.g. :func:`torch_to_jax_params`) in the JAX
+    ``save_params_npz`` format: one array per leaf, keyed by its key path."""
+    flat: dict = {}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{key}['{k}']")
+        else:
+            flat[key] = np.asarray(node)
+
+    walk(params, "")
+    np.savez_compressed(path, **flat)

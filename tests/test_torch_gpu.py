@@ -8,9 +8,11 @@ imports no JAX, so it also runs on a machine that has none:
 import pytest
 import torch
 
+from rl_collision_avoidance_torch.algo import PPOConfig
 from rl_collision_avoidance_torch.engine.env import Env
 from rl_collision_avoidance_torch.models import CNNPolicy
 from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+from rl_collision_avoidance_torch.train import TrainConfig, Trainer
 from rl_collision_avoidance_torch.worlds import mini, stage1
 
 pytestmark = pytest.mark.gpu
@@ -73,11 +75,80 @@ def test_trunk_kernel_matches_plain(cuda, batch):
 
 
 def test_trunk_kernel_refuses_autograd(cuda):
+    """The trunk kernels give the weights a gradient but not the scans."""
     policy = CNNPolicy().to(cuda)
-    scans = torch.zeros(4, 3, 512, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
+    scans = torch.zeros(4, 3, 512, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient to the scans"):
         trunk_cuda.twin_trunks(scans, policy.trunk_weights("act"),
                                policy.trunk_weights("crt"))
+
+
+def _bwd_inputs(cuda, batch, seed=0):
+    torch.manual_seed(seed)
+    policy = CNNPolicy().to(cuda)
+    scans = torch.rand(batch, 3, 512, device=cuda) - 0.5
+    g = torch.randn(2, batch, 256, device=cuda)
+    act = [w.detach() for w in policy.trunk_weights("act")]
+    crt = [w.detach() for w in policy.trunk_weights("crt")]
+    return scans, act, crt, g
+
+
+@pytest.mark.parametrize("batch", [37, 1000])
+def test_trunk_bwd_kernel_matches_plain(cuda, batch):
+    """Against the plain version in float64; each leaf at 1e-5 of its
+    largest value (its batch sums run in another order than cuDNN's)."""
+    scans, act, crt, g = _bwd_inputs(cuda, batch)
+    before = trunk_cuda.bwd_launches
+    got = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
+    assert trunk_cuda.bwd_launches == before + 1
+    f64 = lambda ws: [w.double() for w in ws]
+    want = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
+                                              f64(crt), g.double())
+    torch.cuda.synchronize()
+    for name, a, b in zip(trunk_cuda.WEIGHT_NAMES * 2, (*got[0], *got[1]),
+                          (*want[0], *want[1])):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a.double(), b, atol=1e-5 * scale, rtol=0,
+                                   msg=name)
+
+
+def test_trunk_bwd_kernel_is_deterministic(cuda):
+    """No float atomics: two launches on the same inputs agree bit for bit."""
+    scans, act, crt, g = _bwd_inputs(cuda, 1000, seed=1)
+    first = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
+    second = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
+    for a, b in zip((*first[0], *first[1]), (*second[0], *second[1])):
+        assert torch.equal(a, b)
+
+
+def test_policy_grads_through_kernels_match_plain_path(cuda):
+    """The autograd Function (both kernels) against autograd through the
+    plain trunks, on a loss touching both heads and logstd; 1e-4 of each
+    leaf's largest value, the forward kernel's own tolerance."""
+    torch.manual_seed(2)
+    policy = CNNPolicy().to(cuda)
+    scans = torch.rand(37, 3, 512, device=cuda) - 0.5
+    goal, speed = torch.randn(37, 2, device=cuda), torch.randn(37, 2,
+                                                               device=cuda)
+
+    def loss(feats):
+        v, m, ls = policy.heads(feats, goal, speed)
+        return (v ** 2).sum() + (m ** 2).sum() + (ls ** 2).sum()
+
+    act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
+    params = list(policy.parameters())
+    before = (trunk_cuda.launches, trunk_cuda.bwd_launches)
+    got = torch.autograd.grad(loss(trunk_cuda.twin_trunks(scans, act, crt)),
+                              params)
+    assert (trunk_cuda.launches, trunk_cuda.bwd_launches) == (before[0] + 1,
+                                                              before[1] + 1)
+    with trunk_cuda.exact_float32():
+        want = torch.autograd.grad(
+            loss(trunk_cuda.twin_trunks_plain(scans, act, crt)), params)
+    for (name, _), a, b in zip(policy.named_parameters(), got, want):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0, msg=name)
 
 
 def test_env_kernel_path_matches_plain_path(cuda):
@@ -99,3 +170,23 @@ def test_env_kernel_path_matches_plain_path(cuda):
         assert torch.equal(state.pose, pstate.pose)
         torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL,
                                    rtol=0)
+
+
+def test_training_update_on_the_card(cuda):
+    """One stage-1 update (2 arenas, horizon 16: 768 samples, 3 minibatches
+    x 2 epochs) through all three kernels, with finite losses."""
+    tr = Trainer(TrainConfig.stage1(n_arenas=2, horizon=16,
+                                    ppo=PPOConfig(batch_size=256)),
+                 device=cuda)
+    state = tr.init_state()
+    before = [p.detach().clone() for p in state.policy.parameters()]
+    counts = (lidar_cuda.launches, trunk_cuda.launches,
+              trunk_cuda.bwd_launches)
+    state, m = tr.train_step(state)
+    assert lidar_cuda.launches - counts[0] == 16
+    assert trunk_cuda.launches - counts[1] == 16 + 1 + 6
+    assert trunk_cuda.bwd_launches - counts[2] == 6
+    for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
+        assert torch.isfinite(torch.tensor(m[k])), k
+    assert max(float((p.detach() - q).abs().max()) for p, q in
+               zip(state.policy.parameters(), before)) > 0

@@ -21,11 +21,14 @@ _SLICE = """
 import sys
 import torch
 import chip_smoke
-from rl_collision_avoidance_torch import bench
+from rl_collision_avoidance_torch import bench, cli
+from rl_collision_avoidance_torch.algo import gae, ppo
 from rl_collision_avoidance_torch.engine.env import Env
 from rl_collision_avoidance_torch.models import load_policy
 from rl_collision_avoidance_torch.ops import build, lidar_cuda, trunk_cuda
-from rl_collision_avoidance_torch.utils import device, params
+from rl_collision_avoidance_torch.train import TrainConfig, Trainer
+from rl_collision_avoidance_torch.utils import device, metrics, params
+from rl_collision_avoidance_torch.utils import profiling
 from rl_collision_avoidance_torch.worlds import stage1
 
 env = Env(stage1(), device="cpu")
@@ -34,6 +37,11 @@ state, obs = env.reset(1)
 gen = torch.Generator().manual_seed(0)
 state, obs, stats = bench.run_acting(env, policy, state, obs, 2, gen)
 assert bool(stats["finite"])
+trainer = Trainer(TrainConfig(world="mini", horizon=4,
+                              ppo=ppo.PPOConfig(batch_size=8, epochs=1)),
+                  device="cpu")
+_, m = trainer.train_step(trainer.init_state())
+assert all(v == v for v in m.values())
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r}))
 """
@@ -45,8 +53,9 @@ def _run(args, cwd=ROOT, env=None):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing the port and chip_smoke.py, and running the stage-1 slice on
-    the CPU, loads none of JAX, flax, PIL or the JAX package."""
+    """Importing the port and chip_smoke.py, and running the stage-1 acting
+    slice and a training update on the CPU, loads none of JAX, flax, PIL or
+    the JAX package."""
     code = _SLICE.replace("{FORBIDDEN!r}", repr(set(FORBIDDEN)))
     proc = _run(["-c", code], env=NO_CARD)
     assert proc.returncode == 0, proc.stderr
@@ -90,7 +99,8 @@ def test_build_is_one_plain_nvcc_call_for_sm_90a():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert {p.name for p in build.sources()} == {"lidar.cu", "trunk_fwd.cu"}
+    assert {p.name for p in build.sources()} == {"lidar.cu", "trunk_fwd.cu",
+                                             "trunk_bwd.cu"}
     assert build.BUILD_ROOT == ROOT / "rl_collision_avoidance_torch" / "_build"
     assert "rl_collision_avoidance_torch/_build/" in (
         ROOT / ".gitignore").read_text().splitlines()

@@ -74,3 +74,37 @@ def assert_frame_matches_jax(env, mine, ref, pose):
                        *f64_ranges(lambda *a: jlidar.raycast_culled(*a, m),
                                    pose, env.local_dirs.numpy(), culled,
                                    radius=env.spec.robot_radius), m)
+
+
+# A PPO update's parameter change (new - old) against JAX's.  Adam divides
+# each gradient by its own running RMS, so an element whose gradient nearly
+# cancels (|g| near its float32 rounding error) moves by a visible part of
+# lr on rounding alone: in tests/test_torch_ppo.py at most 11 of 131,072
+# elements of a leaf differ by more than 1e-4 of the leaf's largest change,
+# the worst by 5e-3.  So each leaf is held twice: every element within
+# DELTA_ATOL of the largest change, and the whole leaf within DELTA_NORM in
+# relative 2-norm (measured: at most 7e-5).  A wrong gradient, sign or bias
+# correction misses both by orders of magnitude.
+DELTA_ATOL = 2e-2
+DELTA_NORM = 1e-3
+
+
+def assert_update_matches_jax(before: dict, after: dict, jax_before,
+                              jax_after):
+    """``before``/``after``: the port's state dicts around the update;
+    ``jax_before``/``jax_after``: the JAX params trees around it."""
+    from rl_collision_avoidance_torch.utils.params import jax_params_to_torch
+
+    jdelta = jax_params_to_torch(jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a) - np.asarray(b),
+        jax.device_get(jax_after), jax.device_get(jax_before)))
+    assert set(jdelta) == set(after)
+    for name, ref in jdelta.items():
+        ref = ref.numpy()
+        delta = (after[name] - before[name]).numpy()
+        scale = float(np.abs(ref).max())
+        assert scale > 0, name
+        np.testing.assert_allclose(delta, ref, rtol=0,
+                                   atol=DELTA_ATOL * scale, err_msg=name)
+        rel = np.linalg.norm(delta - ref) / np.linalg.norm(ref)
+        assert rel <= DELTA_NORM, (name, rel)
