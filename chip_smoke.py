@@ -6,7 +6,9 @@ stage-1 acting path (policy forward -> Gaussian sample -> env step, 128
 arenas x 24 robots, the committed trained weights) and the stage-1 training
 path (rollout, GAE and clipped PPO with Adam, 32 arenas, warm-started from
 the same weights), and checks that both ran through the kernels, at those
-batch sizes, and stayed right.  It writes nothing into the tree.
+batch sizes, and stayed right.  It also prints the device ms of each pass
+of one trunk forward and one backward launch at B = 32,768 (torch.profiler).
+It writes nothing into the tree.
 
     python3 chip_smoke.py
 
@@ -257,8 +259,8 @@ def check_trunk(device, batch: int):
                              f"by {err} (atol {TRUNK_ATOL}, rtol "
                              f"{TRUNK_RTOL})")
     b, frames, beams = scans.shape
-    print(f"trunk: max |kernel - plain| = {err:.3g} on B = {b} (tile 10: "
-          f"{b % 10 or 10} samples in the last block), features up to "
+    print(f"trunk: max |kernel - plain| = {err:.3g} on B = {b} "
+          f"({trunk_cuda.plan_for(scans)}), features up to "
           f"{float(want.abs().max()):.3g}", flush=True)
 
     per_sample, _ = trunk_ops(frames, beams)
@@ -532,6 +534,62 @@ def check_trunk_bwd(device):
     return record
 
 
+# The kernels' passes by the CUDA symbol names torch.profiler reports
+# (demangled or not): the conv passes, the product core's instances (A and B
+# k-contiguous or not, epilogue), its split-K reduce, the backward's reduce.
+PASSES = (("conv_fwd_kernel", "conv pass"), ("conv_bwd_kernel", "conv_bwd"),
+          ("splitk_reduce", "split-K reduce"), ("reduce_kernel", "reduce"),
+          ("gemm_kernel<true,true,1>|ILb1ELb1ELi1E", "fc1 product"),
+          ("gemm_kernel<true,true,2>|ILb1ELb1ELi2E", "g1 product"),
+          ("gemm_kernel<false,false,0>|ILb0ELb0ELi0E", "dWf product"),
+          ("gemm_kernel<true,false,3>|ILb1ELb0ELi3E", "dflat product"))
+
+
+@phase("trunk kernels by pass")
+def pass_times(device):
+    """Device ms of each pass of one forward and one backward launch at
+    B = BWD_BATCH, from torch.profiler; "not measured" where the profiler
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rl_collision_avoidance_torch.models import load_policy
+    from rl_collision_avoidance_torch.ops import trunk_cuda
+
+    policy = load_policy(PARAMS, device=device)
+    act = [w.detach() for w in policy.trunk_weights("act")]
+    crt = [w.detach() for w in policy.trunk_weights("crt")]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    scans = torch.rand((BWD_BATCH, 3, 512), generator=gen, device=device)
+    g = torch.randn((2, BWD_BATCH, 256), generator=gen, device=device)
+    out = {}
+    for name, fn in (("twin_trunks",
+                      lambda: trunk_cuda.twin_trunks(scans, act, crt)),
+                     ("twin_trunks_grads",
+                      lambda: trunk_cuda.twin_trunks_grads(scans, act, crt,
+                                                           g))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) \
+                as prof:
+            fn()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            key = ev.key.replace(" ", "")
+            for pattern, label in PASSES:
+                if any(p in key for p in pattern.split("|")) and us > 0:
+                    split[label] = split.get(label, 0.0) + us / 1e3
+                    break
+        out[name] = split or "not measured"
+    print("passes (device ms, one launch at B = "
+          f"{BWD_BATCH}, torch.profiler): {json.dumps(out)}", flush=True)
+
+
 @phase("stage-1 training slice")
 def run_training(device, card: str):
     import torch
@@ -674,6 +732,7 @@ def main() -> int:
               check_trunk(device, ARENAS * robots),
               check_trunk(device, TRAIN_ARENAS * robots),
               check_trunk(device, BWD_BATCH), check_trunk_bwd(device)]
+    pass_times(device)
     records = {(r["name"], r["batch"]): r for r in checks}
     paths = [("acting", run_slice(device, label)),
              ("training", run_training(device, label))]

@@ -18,336 +18,304 @@
 // float atomics, so the same inputs give the same bits.  The batch sums are
 // split into passes that each own their outputs and sum in a fixed order:
 //
-//   1. conv_fwd: per sample, conv1 and conv2 into the channel-major flat
+//   1. the conv pass of the forward kernel (trunk_conv.cuh): the flat
 //      features, written to a workspace `act` (2, B, 32 L2).
-//   2. gemm <fc1>: out = flat Wf^T + bf, g1 = g [out > 0] -> workspace (2, B, 256).
-//   3. gemm <dWf>: dWf = g1^T flat, output-stationary: each block owns a
-//      128 x 128 tile of dWf and loops over the whole batch in order.
-//   4. gemm <dflat>: g2 = (g1 Wf) [flat > 0], written over `act` in place.
-//   5. conv_bwd: per sample, recompute conv1, then dW2, db2, the transposed
-//      conv2 onto the conv1 grid, g3 = dconv1 [conv1 > 0], dW1 and db1; each
-//      block sums its kConvTile samples in registers and writes one partial.
+//   2. product <fc1>: g1 = g [act Wf^T + bf > 0] -> workspace (2, B, 256),
+//      split over K as the forward's fc1 is, so the mask is the forward's.
+//   3. product <dWf>: dWf = g1^T act, K = the batch, split into fixed sample
+//      ranges whose partials a fixed-order pass adds.
+//   4. product <dflat>: g2 = (g1 Wf) [act > 0], written over `act` in place.
+//   5. conv_bwd: per sample, recompute conv1, then dW2 and db2, the
+//      transposed conv2 onto the conv1 grid masked by the conv1 ReLU (g3),
+//      dW1 and db1; block i sums a fixed range of samples in registers and
+//      writes one partial.
 //   6. reduce: one warp per small-gradient element sums the blocks' partials
 //      (and, for dbf, the rows of g1) in a fixed order.
 //
-// Workspace: the flat features (B x 4096 x 4 B = 537 MB per trunk at
-// B = 32,768), g1 (34 MB per trunk) and the partials (2 x ceil(B / 16) x
-// 3,616 floats, 59 MB).  The passes move ~8 GB through HBM in all (the flat
-// features are written once, read by passes 2 to 4, and g2 is written over
-// them and read by pass 5), ~2.4 ms at 3.35 TB/s, so operations still bound
-// it.  The products are plain register-tiled float32 FMA (8 x 8 outputs a
-// thread): no tensor cores, no TF32.  Samples past B are never read, so a
-// ragged batch adds nothing.
+// The products run on trunk_gemm.cuh's core.  conv_bwd is register tiled
+// like the conv pass: dW2 is a product (32 x 96) with K = positions x
+// samples, a thread owning 8 output channels x 3 taps of one input channel;
+// the transposed conv2 a per-sample product owning 4 input channels x 4
+// positions (even and odd); dW1 one (channel, frame) pair's 5 taps over a
+// range of positions.  Its shared memory (~71 KB) lets two blocks share an
+// SM.  Samples past B are never read, so a ragged batch adds nothing.
 #include <cuda_runtime.h>
 
 #include "trunk_conv.cuh"
+#include "trunk_gemm.cuh"
 
 namespace {
 
+using trunk::ceil_div;
+using trunk::ConvGeom;
 using trunk::kC;
+using trunk::kConvThreads;
 using trunk::kH;
+using trunk::kReduceThreads;
 using trunk::Trunk;
-using trunk::conv1_len;
-using trunk::conv2_len;
-
-constexpr int kConvThreads = 512;
-constexpr int kConvTile = 16;  // samples per block in passes 1 and 5
-constexpr int kMaxFrames = 6;  // more frames: trunk_bwd_launch refuses them
-// Pass 5's per-thread accumulators: [dW2 | db2] has 32 * 32 * 3 + 32
-// entries, [dW1 | db1] at most 32 * kMaxFrames * 5 + 32.
-constexpr int kPer2 = (kC * kC * 3 + kC + kConvThreads - 1) / kConvThreads;
-constexpr int kPer1 = (kC * kMaxFrames * 5 + kC + kConvThreads - 1) / kConvThreads;
-
-constexpr int kBM = 128, kBN = 128, kBK = 16;  // gemm block tile
-constexpr int kGemmThreads = 256;              // 16 x 16, 8 x 8 outputs each
-constexpr int kTM = kBM / 16, kTN = kBN / 16;
-
-constexpr int kReduceThreads = 256;
 
 // Per trunk, the gradients lie in one row of `grads` in the order w1, b1,
 // w2, b2, wf, bf; a partial holds the first four.
 struct Layout {
-  int frames, l1, l2, nflat;
-  int off_w2, psize, off_wf, off_bf, total;
-  int blocks;  // conv blocks per trunk
+  ConvGeom g;
+  int nw1, nw2, psize, off_wf, off_bf, total;
+  int blocks;  // conv_bwd blocks per trunk
+  int nchunk;  // position ranges of dW1 per (channel, frame)
+  int gs;      // floats per row of g2 in shared memory
+  long long act, g1, partial, part, work;  // workspace offsets and size
 };
 
-Layout layout(int batch, int frames, int beams) {
+Layout layout(int batch, int frames, int beams, int per_block, int fc1_splits,
+              int dwf_splits) {
   Layout s;
-  s.frames = frames;
-  s.l1 = conv1_len(beams);
-  s.l2 = conv2_len(s.l1);
-  s.nflat = kC * s.l2;
-  s.off_w2 = kC * frames * 5 + kC;
-  s.psize = s.off_w2 + kC * kC * 3 + kC;
+  s.g = trunk::conv_geom(frames, beams);
+  s.nw1 = kC * frames * 5;
+  s.nw2 = kC * kC * 3;
+  s.psize = s.nw1 + kC + s.nw2 + kC;
   s.off_wf = s.psize;
-  s.off_bf = s.off_wf + kH * s.nflat;
+  s.off_bf = s.off_wf + kH * s.g.nflat;
   s.total = s.off_bf + kH;
-  s.blocks = (batch + kConvTile - 1) / kConvTile;
+  s.blocks = ceil_div(batch, per_block);
+  s.nchunk = 8 / frames;
+  s.gs = s.g.l2 + 4;
+  s.act = 0;
+  s.g1 = 2LL * batch * s.g.nflat;
+  s.partial = s.g1 + 2LL * batch * kH;
+  s.part = s.partial + 2LL * s.blocks * s.psize;
+  const long long fc1 = trunk::gemm_part_floats(batch, kH, fc1_splits);
+  const long long dwf = trunk::gemm_part_floats(kH, s.g.nflat, dwf_splits);
+  s.work = s.part + (fc1 > dwf ? fc1 : dwf);
   return s;
 }
 
-size_t conv_smem_floats(int frames, int beams, bool backward) {
-  const int l1 = conv1_len(beams);
-  return static_cast<size_t>(kC * frames * 5 + kC + kC * kC * 3 + kC +
-                             frames * beams + kC * l1) +
-         (backward ? static_cast<size_t>(kC) * conv2_len(l1) : 0);
-}
-
-// Pass 1: act[t][b] = the flat conv2 features of sample b, trunk t.
-__global__ void __launch_bounds__(kConvThreads)
-    conv_fwd_kernel(const float* __restrict__ x, Trunk act_w, Trunk crt_w,
-                    float* __restrict__ act, int batch, int frames,
-                    int beams) {
-  extern __shared__ float sh[];
-  const int l1 = conv1_len(beams);
-  const int nflat = kC * conv2_len(l1);
-  const Trunk p = blockIdx.y == 0 ? act_w : crt_w;
-  const int b0 = blockIdx.x * kConvTile;
-  const int nb = min(kConvTile, batch - b0);
-  const int tid = threadIdx.x;
-
-  float* w1 = sh;
-  float* b1 = w1 + kC * frames * 5;
-  float* w2 = b1 + kC;
-  float* b2 = w2 + kC * kC * 3;
-  float* xs = b2 + kC;              // (F, NB) one sample
-  float* y1 = xs + frames * beams;  // (32, L1) one sample
-  trunk::load_conv_weights(p, w1, b1, w2, b2, frames, tid, kConvThreads);
-
-  for (int s = 0; s < nb; ++s) {
-    const size_t b = static_cast<size_t>(b0 + s);
-    const float* xb = x + b * frames * beams;
-    for (int i = tid; i < frames * beams; i += kConvThreads) xs[i] = xb[i];
-    __syncthreads();
-    trunk::conv1_relu(xs, w1, b1, y1, frames, beams, tid, kConvThreads);
-    __syncthreads();
-    trunk::conv2_relu(y1, w2, b2,
-                      act + (blockIdx.y * static_cast<size_t>(batch) + b) * nflat,
-                      l1, tid, kConvThreads);
-    // xs is written again only after every thread has passed the barrier
-    // after conv1, and y1 only after the next one.
-  }
-}
-
-enum Epilogue { kStore = 0, kBiasReluGrad = 1, kMaskPositive = 2 };
-
-// C (M, N) = A (M, K) B (K, N), per trunk t = blockIdx.z, with element
-// (m, k) of A at a[t][m * sam + k * sak] and (k, n) of B at
-// b[t][k * sbk + n * sbn].  Epilogues: kStore writes the sum;
-// kBiasReluGrad writes aux[m][n] where sum + bias[n] > 0, else 0 (the fc1
-// ReLU's backward); kMaskPositive writes the sum where aux[m][n] > 0, else 0
-// (aux may be C itself: each element is read and then written by one thread).
-struct Gemm {
-  const float* a[2];
-  const float* b[2];
-  float* c[2];
-  const float* bias[2];
-  const float* aux[2];
-  long long sam, sak, sbk, sbn;
-  int ldc, ldaux, m, n, k;
+// conv_bwd's shared memory: w1t, b1, w2 by input channel, one sample's x
+// planes, then a region that holds its conv1 planes (g3 in place) and its
+// g2 rows while samples are summed and the end-of-block scratch after.
+struct BwdSmem {
+  int w1t, b1, w2b, x, y1, g2, scratch, floats;
 };
 
-// kAk: A's k index is the contiguous one; kBn: B's n index is.  They only
-// choose which thread loads which element, so that loads are coalesced.
-template <bool kAk, bool kBn, int kEpi>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(Gemm p) {
-  __shared__ float as[kBK][kBM + 1];
-  __shared__ float bs[kBK][kBN + 1];
-  const int t = blockIdx.z;
-  const float* a = p.a[t];
-  const float* b = p.b[t];
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < p.k; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kGemmThreads) {
-      const int mm = kAk ? i / kBK : i % kBM;
-      const int kk = kAk ? i % kBK : i / kBM;
-      const int m = m0 + mm, k = k0 + kk;
-      as[kk][mm] = (m < p.m && k < p.k) ? a[m * p.sam + k * p.sak] : 0.0f;
-    }
-    for (int i = tid; i < kBN * kBK; i += kGemmThreads) {
-      const int nn = kBn ? i % kBN : i / kBK;
-      const int kk = kBn ? i / kBN : i % kBK;
-      const int n = n0 + nn, k = k0 + kk;
-      bs[kk][nn] = (n < p.n && k < p.k) ? b[k * p.sbk + n * p.sbn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= p.m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= p.n) continue;
-      float v = acc[i][j];
-      if (kEpi == kBiasReluGrad) {
-        v = v + p.bias[t][n] > 0.0f
-                ? p.aux[t][static_cast<size_t>(m) * p.ldaux + n]
-                : 0.0f;
-      } else if (kEpi == kMaskPositive) {
-        v = p.aux[t][static_cast<size_t>(m) * p.ldaux + n] > 0.0f ? v : 0.0f;
-      }
-      p.c[t][static_cast<size_t>(m) * p.ldc + n] = v;
-    }
-  }
+__host__ __device__ inline int scratch_floats(const Layout& s) {
+  return 2 * s.nw2 + kC * 8 + s.nchunk * s.nw1 + s.nchunk * kC;
 }
 
-// Pass 5: per block of kConvTile samples and trunk, the sums over those
+__host__ __device__ inline BwdSmem bwd_smem(const Layout& s) {
+  BwdSmem m;
+  m.w1t = 0;
+  m.b1 = m.w1t + s.nw1;
+  m.w2b = m.b1 + kC;
+  m.x = m.w2b + s.nw2;
+  m.y1 = m.x + trunk::x_floats(s.g);
+  m.g2 = m.y1 + trunk::y1_floats(s.g);
+  m.scratch = m.y1;
+  const int region = trunk::y1_floats(s.g) + kC * s.gs;
+  const int scratch = scratch_floats(s);
+  m.floats = m.y1 + (region > scratch ? region : scratch);
+  return m;
+}
+
+// Pass 5: per block of per_block samples and trunk, the sums over those
 // samples of dW1, db1, dW2 and db2, into partial[t][block][0 : psize].
-__global__ void __launch_bounds__(kConvThreads)
+__global__ void __launch_bounds__(kConvThreads, 2)
     conv_bwd_kernel(const float* __restrict__ x, Trunk act_w, Trunk crt_w,
                     const float* __restrict__ g2, float* __restrict__ partial,
-                    int batch, int frames, int beams) {
-  extern __shared__ float sh[];
-  const int l1 = conv1_len(beams);
-  const int l2 = conv2_len(l1);
-  const int nflat = kC * l2;
-  const int nw1 = kC * frames * 5;
-  const int nw2 = kC * kC * 3;
+                    Layout s, int batch, int per_block) {
+  extern __shared__ __align__(16) float sh[];
+  const ConvGeom& g = s.g;
+  const BwdSmem sm = bwd_smem(s);
   const Trunk p = blockIdx.y == 0 ? act_w : crt_w;
-  const int b0 = blockIdx.x * kConvTile;
-  const int nb = min(kConvTile, batch - b0);
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  float* w1t = sh + sm.w1t;
+  float* b1 = sh + sm.b1;
+  float* w2b = sh + sm.w2b;
+  float* xsm = sh + sm.x;
+  float* y1 = sh + sm.y1;  // even rows, then odd rows; g3 in place
+  float* gsm = sh + sm.g2;
+  trunk::stage_conv1_weights(p, w1t, b1, g.frames, tid);
+  trunk::stage_conv2_weights<false>(p, w2b, tid);
+  trunk::zero_pads(xsm, y1, g, 1, tid);
+  for (int i = tid; i < kC * 4; i += kConvThreads)
+    gsm[(i >> 2) * s.gs + g.l2 + (i & 3)] = 0.0f;
 
-  float* w1 = sh;
-  float* b1 = w1 + nw1;
-  float* w2 = b1 + kC;
-  float* b2 = w2 + nw2;
-  float* xs = b2 + kC;              // (F, NB) one sample
-  float* y1 = xs + frames * beams;  // (32, L1) conv1, then g3 in place
-  float* gs = y1 + kC * l1;         // (32, L2) g2 of one sample
-  trunk::load_conv_weights(p, w1, b1, w2, b2, frames, tid, kConvThreads);
-
-  float acc2[kPer2], acc1[kPer1];
+  // dW2: warp w owns output channels 8 (w % 4) .. + 7 and half w / 4 of the
+  // position groups; lane = input channel.  db2: channel tid / 8, part
+  // tid % 8 of the positions.  dW1: warp w < F * nchunk owns frame w % F,
+  // position range w / F; lane = output channel.
+  const int nq = g.l2 / 4;  // position groups of conv2
+  const int c0 = (warp & 3) * 8;
+  const int q_half = ceil_div(nq, 2);
+  const int q_lo = (warp >> 2) * q_half, q_hi = min(nq, q_lo + q_half);
+  const int bc = tid >> 3;
+  const int m_part = ceil_div(g.l2, 8);
+  const int m_lo = (tid & 7) * m_part, m_hi = min(g.l2, m_lo + m_part);
+  const int f1 = warp % g.frames, ch = warp / g.frames;
+  const bool dw1 = warp < g.frames * s.nchunk;
+  const int n8 = g.half / 8;
+  const int l_part = ceil_div(n8, s.nchunk);
+  const int k8_lo = ch * l_part, k8_hi = min(n8, k8_lo + l_part);
+  float acc2[8][3], accb2 = 0.0f, acc1[5], accb1 = 0.0f;
 #pragma unroll
-  for (int r = 0; r < kPer2; ++r) acc2[r] = 0.0f;
+  for (int c = 0; c < 8; ++c)
 #pragma unroll
-  for (int r = 0; r < kPer1; ++r) acc1[r] = 0.0f;
+    for (int t = 0; t < 3; ++t) acc2[c][t] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 5; ++t) acc1[t] = 0.0f;
 
-  for (int s = 0; s < nb; ++s) {
-    const size_t b = static_cast<size_t>(b0 + s);
-    const float* xb = x + b * frames * beams;
-    const float* gb = g2 + (blockIdx.y * static_cast<size_t>(batch) + b) * nflat;
-    for (int i = tid; i < frames * beams; i += kConvThreads) xs[i] = xb[i];
-    for (int i = tid; i < nflat; i += kConvThreads) gs[i] = gb[i];
+  const int b_begin = blockIdx.x * per_block;
+  const int b_end = min(batch, b_begin + per_block);
+  for (int b = b_begin; b < b_end; ++b) {
+    const float* gb = g2 + (blockIdx.y * static_cast<size_t>(batch) + b) * g.nflat;
+    for (int i = tid; i < g.nflat / 4; i += kConvThreads) {
+      const int c = i / nq;
+      const int q = i - c * nq;
+      trunk::cp_async16(gsm + c * s.gs + 4 * q, gb + 4 * i, true);
+    }
+    trunk::cp_async_commit();
+    trunk::load_x(x + static_cast<size_t>(b) * g.frames * g.beams, xsm, g, tid);
+    trunk::cp_async_wait<0>();
     __syncthreads();
-    trunk::conv1_relu(xs, w1, b1, y1, frames, beams, tid, kConvThreads);
+    for (int it = tid; it < g.half; it += kConvThreads)  // 4 x (half / 4) items
+      trunk::conv1_item(xsm, w1t, b1, y1, g, it / (g.half / 4), it % (g.half / 4));
     __syncthreads();
 
-    // dW2[c][ci][t] += sum_m g2[c][m] conv1[ci][2m + t - 1]; db2[c] += sum_m g2[c][m]
+    // dW2[c][ci][t] += sum_m g2[c][m] conv1[ci][2m + t - 1]
+    {
+      const float* ye = y1 + lane * g.ys;
+      const float* yo = y1 + (kC + lane) * g.ys;
+      for (int q = q_lo; q < q_hi; ++q) {
+        const int m = 4 * q;
+        const float4 e4 = *reinterpret_cast<const float4*>(ye + m);
+        const float4 o4 = *reinterpret_cast<const float4*>(yo + m);
+        const float yv[3][4] = {{o4.x, o4.y, o4.z, o4.w},
+                                {e4.x, e4.y, e4.z, e4.w},
+                                {o4.y, o4.z, o4.w, yo[m + 4]}};
 #pragma unroll
-    for (int r = 0; r < kPer2; ++r) {
-      const int e = tid + r * kConvThreads;
-      if (e < nw2) {
-        const int c = e / (kC * 3);
-        const int ci = (e / 3) % kC;
-        const int t = e % 3;
-        const float* gr = gs + c * l2;
-        const float* yr = y1 + ci * l1;
-        float v = acc2[r];
-        for (int m = 0; m < l2; ++m) {
-          const int idx = 2 * m + t - 1;
-          if (idx >= 0 && idx < l1) v = fmaf(gr[m], yr[idx], v);
+        for (int c = 0; c < 8; ++c) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gsm + (c0 + c) * s.gs + m);
+          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int t = 0; t < 3; ++t) acc2[c][t] = fmaf(gv[j], yv[t][j], acc2[c][t]);
         }
-        acc2[r] = v;
-      } else if (e < nw2 + kC) {
-        const float* gr = gs + (e - nw2) * l2;
-        float v = acc2[r];
-        for (int m = 0; m < l2; ++m) v += gr[m];
-        acc2[r] = v;
       }
+      for (int m = m_lo; m < m_hi; ++m) accb2 += gsm[bc * s.gs + m];
     }
     __syncthreads();
 
-    // Transposed conv2: conv1 position l takes tap t of conv2 position m
-    // where 2m + t - 1 = l (even l: tap 1; odd l: tap 0 of the next
-    // position and tap 2).  Masked by the conv1 ReLU, written over y1.
-    for (int o = tid; o < kC * l1; o += kConvThreads) {
-      const int ci = o / l1;
-      const int l = o - ci * l1;
-      float d = 0.0f;
-      if (y1[o] > 0.0f) {
-        for (int c = 0; c < kC; ++c) {
-          const float* wr = w2 + (c * kC + ci) * 3;
-          const float* gr = gs + c * l2;
+    // Transposed conv2: conv1 position 2q takes tap 1 of conv2 position q;
+    // 2q + 1 takes tap 2 of position q and tap 0 of q + 1.  Masked by the
+    // conv1 ReLU and written over the conv1 planes.
+    for (int it = tid; it < 8 * nq; it += kConvThreads) {
+      const int ci0 = (it / nq) * 4, q0 = (it % nq) * 4;
+      float ev[4][4], ov[4][4];
 #pragma unroll
-          for (int t = 0; t < 3; ++t) {
-            const int num = l + 1 - t;
-            if (num >= 0 && (num & 1) == 0 && (num >> 1) < l2)
-              d = fmaf(gr[num >> 1], wr[t], d);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ev[i][j] = ov[i][j] = 0.0f;
+#pragma unroll 2
+      for (int c = 0; c < kC; ++c) {
+        const float* gr = gsm + c * s.gs + q0;
+        const float4 g4 = *reinterpret_cast<const float4*>(gr);
+        const float gv[5] = {g4.x, g4.y, g4.z, g4.w, gr[4]};
+        const float4 w0 = *reinterpret_cast<const float4*>(w2b + (c * 3 + 0) * kC + ci0);
+        const float4 w1 = *reinterpret_cast<const float4*>(w2b + (c * 3 + 1) * kC + ci0);
+        const float4 w2 = *reinterpret_cast<const float4*>(w2b + (c * 3 + 2) * kC + ci0);
+        const float wt[3][4] = {{w0.x, w0.y, w0.z, w0.w},
+                                {w1.x, w1.y, w1.z, w1.w},
+                                {w2.x, w2.y, w2.z, w2.w}};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ev[i][j] = fmaf(wt[1][i], gv[j], ev[i][j]);
+            ov[i][j] = fmaf(wt[2][i], gv[j], ov[i][j]);
+            ov[i][j] = fmaf(wt[0][i], gv[j + 1], ov[i][j]);
           }
-        }
       }
-      y1[o] = d;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* ye = y1 + (ci0 + i) * g.ys + q0;
+        float* yo = y1 + (kC + ci0 + i) * g.ys + q0 + 1;
+        const float4 e4 = *reinterpret_cast<const float4*>(ye);
+        *reinterpret_cast<float4*>(ye) = make_float4(
+            e4.x > 0.0f ? ev[i][0] : 0.0f, e4.y > 0.0f ? ev[i][1] : 0.0f,
+            e4.z > 0.0f ? ev[i][2] : 0.0f, e4.w > 0.0f ? ev[i][3] : 0.0f);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) yo[j] = yo[j] > 0.0f ? ov[i][j] : 0.0f;
+      }
     }
     __syncthreads();
 
     // dW1[c][f][t] += sum_l g3[c][l] x[f][2l + t - 1]; db1[c] += sum_l g3[c][l]
+    if (dw1) {
+      const float* ge = y1 + lane * g.ys;
+      const float* go = y1 + (kC + lane) * g.ys;
+      const float* xe = xsm + f1 * g.xs;
+      const float* xo = xe + g.frames * g.xs;
+      for (int k8 = k8_lo; k8 < k8_hi; ++k8) {
+        const int l0 = 8 * k8;
+        const float4 e4 = *reinterpret_cast<const float4*>(ge + l0 / 2);
+        const float4 o4 = *reinterpret_cast<const float4*>(go + l0 / 2);
+        const float gl[8] = {e4.x, o4.y, e4.y, o4.z, e4.z, o4.w, e4.w,
+                             go[l0 / 2 + 4]};
+        const float4 xe0 = *reinterpret_cast<const float4*>(xe + l0);
+        const float4 xe1 = *reinterpret_cast<const float4*>(xe + l0 + 4);
+        const float4 xo0 = *reinterpret_cast<const float4*>(xo + l0);
+        const float4 xo1 = *reinterpret_cast<const float4*>(xo + l0 + 4);
+        const float2 xo2 = *reinterpret_cast<const float2*>(xo + l0 + 8);
+        const float ex[9] = {xe0.x, xe0.y, xe0.z, xe0.w, xe1.x, xe1.y, xe1.z,
+                             xe1.w, xe[l0 + 8]};
+        const float ox[10] = {xo0.x, xo0.y, xo0.z, xo0.w, xo1.x, xo1.y,
+                              xo1.z, xo1.w, xo2.x, xo2.y};
 #pragma unroll
-    for (int r = 0; r < kPer1; ++r) {
-      const int e = tid + r * kConvThreads;
-      if (e < nw1) {
-        const int c = e / (frames * 5);
-        const int f = (e / 5) % frames;
-        const int t = e % 5;
-        const float* gr = y1 + c * l1;
-        const float* xr = xs + f * beams;
-        float v = acc1[r];
-        for (int l = 0; l < l1; ++l) {
-          const int idx = 2 * l + t - 1;
-          if (idx >= 0 && idx < beams) v = fmaf(gr[l], xr[idx], v);
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int t = 0; t < 5; ++t)
+            acc1[t] = fmaf(gl[j], (t & 1) ? ex[j + t / 2] : ox[j + t / 2], acc1[t]);
+          if (f1 == 0) accb1 += gl[j];
         }
-        acc1[r] = v;
-      } else if (e < nw1 + kC) {
-        const float* gr = y1 + (e - nw1) * l1;
-        float v = acc1[r];
-        for (int l = 0; l < l1; ++l) v += gr[l];
-        acc1[r] = v;
       }
     }
-    __syncthreads();
+    __syncthreads();  // the next sample overwrites x, conv1 and g2
   }
 
-  const int psize = nw1 + kC + nw2 + kC;
+  // The block's sums through shared memory, added in a fixed order.
+  float* sc2 = sh + sm.scratch;         // dW2 per position half
+  float* scb2 = sc2 + 2 * s.nw2;        // db2 per part
+  float* sc1 = scb2 + kC * 8;           // dW1 per position range
+  float* scb1 = sc1 + s.nchunk * s.nw1; // db1 per position range
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      sc2[(warp >> 2) * s.nw2 + ((c0 + c) * kC + lane) * 3 + t] = acc2[c][t];
+  scb2[tid] = accb2;
+  if (dw1) {
+#pragma unroll
+    for (int t = 0; t < 5; ++t)
+      sc1[ch * s.nw1 + (lane * g.frames + f1) * 5 + t] = acc1[t];
+    if (f1 == 0) scb1[ch * kC + lane] = accb1;
+  }
+  __syncthreads();
   float* out = partial + (blockIdx.y * static_cast<size_t>(gridDim.x) +
-                          blockIdx.x) * psize;
-#pragma unroll
-  for (int r = 0; r < kPer1; ++r) {
-    const int e = tid + r * kConvThreads;
-    if (e < nw1 + kC) out[e] = acc1[r];
+                          blockIdx.x) * s.psize;
+  for (int e = tid; e < s.nw1; e += kConvThreads) {
+    float v = sc1[e];
+    for (int r = 1; r < s.nchunk; ++r) v += sc1[r * s.nw1 + e];
+    out[e] = v;
   }
-#pragma unroll
-  for (int r = 0; r < kPer2; ++r) {
-    const int e = tid + r * kConvThreads;
-    if (e < nw2 + kC) out[nw1 + kC + e] = acc2[r];
+  for (int c = tid; c < kC; c += kConvThreads) {
+    float v = scb1[c];
+    for (int r = 1; r < s.nchunk; ++r) v += scb1[r * kC + c];
+    out[s.nw1 + c] = v;
+    float u = scb2[c * 8];
+    for (int r = 1; r < 8; ++r) u += scb2[c * 8 + r];
+    out[s.nw1 + kC + s.nw2 + c] = u;
   }
+  for (int e = tid; e < s.nw2; e += kConvThreads)
+    out[s.nw1 + kC + e] = sc2[e] + sc2[s.nw2 + e];
 }
 
 // Pass 6: one warp per (trunk, element) of [w1 b1 w2 b2] (from the partials)
@@ -377,63 +345,62 @@ __global__ void __launch_bounds__(kReduceThreads)
     grads[static_cast<size_t>(t) * total + (e < psize ? e : off_bf + e - psize)] = v;
 }
 
-template <bool kAk, bool kBn, int kEpi>
-cudaError_t run_gemm(const Gemm& p, cudaStream_t stream) {
-  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM, 2);
-  gemm_kernel<kAk, kBn, kEpi><<<grid, kGemmThreads, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Floats of workspace that trunk_bwd_launch needs for this batch.
+// Floats of workspace that trunk_bwd_launch needs for this batch and plan.
 extern "C" long long trunk_bwd_workspace_floats(int batch, int frames,
-                                                int beams) {
-  const Layout s = layout(batch, frames, beams);
-  return 2LL * batch * s.nflat + 2LL * batch * kH +
-         2LL * s.blocks * s.psize;
+                                                int beams, int conv_per_block,
+                                                int fc1_splits,
+                                                int dwf_splits) {
+  return layout(batch, frames, beams, conv_per_block, fc1_splits, dwf_splits)
+      .work;
 }
 
 // x (B, F, NB) scans; w: the 12 weight pointers, actor trunk then critic
 // trunk, each in the order w1, b1, w2, b2, wf, bf of struct Trunk; g
 // (2, B, 256) feature cotangent; grads (2, total): per trunk the gradients of
 // w1, b1, w2, b2, wf, bf back to back, each in its weight's layout; work:
-// trunk_bwd_workspace_floats floats.  Returns cudaErrorInvalidValue for more
-// than kMaxFrames frames.
+// work_floats floats.  The plan: conv_per_block samples per conv block (the
+// forward's), fc1_splits ranges of fc1's K (the forward's), dwf_splits
+// sample ranges of dWf.  Returns cudaErrorInvalidValue for shapes the
+// kernels do not take, a plan that leaves a range empty, or too little
+// workspace.
 extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
                                 const void* g, void* grads, void* work,
-                                int batch, int frames, int beams, int device,
-                                void* stream) {
-  if (frames > kMaxFrames) return cudaErrorInvalidValue;
+                                long long work_floats, int batch, int frames,
+                                int beams, int conv_per_block, int fc1_splits,
+                                int dwf_splits, int device, void* stream) {
+  if (!trunk::conv_shapes_ok(frames, beams) || batch < 1 ||
+      conv_per_block < 1 || fc1_splits < 1 || dwf_splits < 1)
+    return cudaErrorInvalidValue;
+  const Layout s = layout(batch, frames, beams, conv_per_block, fc1_splits,
+                          dwf_splits);
+  if (work_floats < s.work) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* const* f = reinterpret_cast<const float* const*>(w);
   const Trunk tr[2] = {{f[0], f[1], f[2], f[3], f[4], f[5]},
                        {f[6], f[7], f[8], f[9], f[10], f[11]}};
-  const Layout s = layout(batch, frames, beams);
   const float* xs = static_cast<const float*>(x);
   const float* gg = static_cast<const float*>(g);
   float* out = static_cast<float*>(grads);
-  float* act = static_cast<float*>(work);                // (2, B, nflat)
-  float* g1 = act + 2LL * batch * s.nflat;               // (2, B, 256)
-  float* partial = g1 + 2LL * batch * kH;                // (2, blocks, psize)
-  const size_t bn = static_cast<size_t>(batch) * s.nflat;
+  float* ws = static_cast<float*>(work);
+  float* act = ws + s.act;          // (2, B, nflat), then g2 in place
+  float* g1 = ws + s.g1;            // (2, B, 256)
+  float* partial = ws + s.partial;  // (2, blocks, psize)
+  float* part = ws + s.part;        // split-K partials of passes 2 and 3
+  const int nflat = s.g.nflat;
+  const size_t bn = static_cast<size_t>(batch) * nflat;
   const size_t bh = static_cast<size_t>(batch) * kH;
 
   // 1. the flat conv features
-  size_t smem = sizeof(float) * conv_smem_floats(frames, beams, false);
-  err = cudaFuncSetAttribute(conv_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = trunk::launch_conv_fwd(xs, tr, act, batch, frames, beams,
+                               conv_per_block, st);
   if (err != cudaSuccess) return err;
-  const dim3 conv_grid(s.blocks, 2);
-  conv_fwd_kernel<<<conv_grid, kConvThreads, smem, st>>>(xs, tr[0], tr[1], act,
-                                                         batch, frames, beams);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 2. g1 = g [flat Wf^T + bf > 0]: M = B, N = 256, K = nflat
-  Gemm p{};
+  // 2. g1 = g [act Wf^T + bf > 0]: M = B, N = 256, K = nflat
+  trunk::Gemm p{};
   for (int t = 0; t < 2; ++t) {
     p.a[t] = act + t * bn;
     p.b[t] = tr[t].wf;
@@ -441,41 +408,49 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
     p.bias[t] = tr[t].bf;
     p.aux[t] = gg + t * bh;
   }
-  p.sam = s.nflat, p.sak = 1, p.sbk = 1, p.sbn = s.nflat;
-  p.ldc = kH, p.ldaux = kH, p.m = batch, p.n = kH, p.k = s.nflat;
-  if ((err = run_gemm<true, false, kBiasReluGrad>(p, st)) != cudaSuccess) return err;
+  p.lda = nflat, p.ldb = nflat, p.ldc = kH, p.ldaux = kH;
+  p.m = batch, p.n = kH, p.k = nflat;
+  p.part = part, p.splits = fc1_splits;
+  p.kchunk = ceil_div(ceil_div(nflat, trunk::kBK), fc1_splits);
+  err = trunk::run_gemm<true, true, trunk::kBiasReluGrad>(p, st);
+  if (err != cudaSuccess) return err;
 
-  // 3. dWf = g1^T flat: M = 256, N = nflat, K = B
-  p = Gemm{};
+  // 3. dWf = g1^T act: M = 256, N = nflat, K = B
+  p = trunk::Gemm{};
   for (int t = 0; t < 2; ++t) {
     p.a[t] = g1 + t * bh;
     p.b[t] = act + t * bn;
     p.c[t] = out + static_cast<size_t>(t) * s.total + s.off_wf;
   }
-  p.sam = 1, p.sak = kH, p.sbk = s.nflat, p.sbn = 1;
-  p.ldc = s.nflat, p.m = kH, p.n = s.nflat, p.k = batch;
-  if ((err = run_gemm<false, true, kStore>(p, st)) != cudaSuccess) return err;
+  p.lda = kH, p.ldb = nflat, p.ldc = nflat;
+  p.m = kH, p.n = nflat, p.k = batch;
+  p.part = part, p.splits = dwf_splits;
+  p.kchunk = ceil_div(ceil_div(batch, trunk::kBK), dwf_splits);
+  err = trunk::run_gemm<false, false, trunk::kStore>(p, st);
+  if (err != cudaSuccess) return err;
 
-  // 4. g2 = (g1 Wf) [flat > 0], over act: M = B, N = nflat, K = 256
-  p = Gemm{};
+  // 4. g2 = (g1 Wf) [act > 0], over act: M = B, N = nflat, K = 256
+  p = trunk::Gemm{};
   for (int t = 0; t < 2; ++t) {
     p.a[t] = g1 + t * bh;
     p.b[t] = tr[t].wf;
     p.c[t] = act + t * bn;
     p.aux[t] = act + t * bn;
   }
-  p.sam = kH, p.sak = 1, p.sbk = s.nflat, p.sbn = 1;
-  p.ldc = s.nflat, p.ldaux = s.nflat, p.m = batch, p.n = s.nflat, p.k = kH;
-  if ((err = run_gemm<true, true, kMaskPositive>(p, st)) != cudaSuccess) return err;
+  p.lda = kH, p.ldb = nflat, p.ldc = nflat, p.ldaux = nflat;
+  p.m = batch, p.n = nflat, p.k = kH;
+  p.splits = 1, p.kchunk = kH / trunk::kBK;
+  err = trunk::run_gemm<true, false, trunk::kMaskPositive>(p, st);
+  if (err != cudaSuccess) return err;
 
   // 5. per-block partial sums of dW1, db1, dW2, db2
-  smem = sizeof(float) * conv_smem_floats(frames, beams, true);
+  const size_t smem = sizeof(float) * bwd_smem(s).floats;
   err = cudaFuncSetAttribute(conv_bwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  conv_bwd_kernel<<<conv_grid, kConvThreads, smem, st>>>(
-      xs, tr[0], tr[1], act, partial, batch, frames, beams);
+  conv_bwd_kernel<<<dim3(s.blocks, 2), kConvThreads, smem, st>>>(
+      xs, tr[0], tr[1], act, partial, s, batch, conv_per_block);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 6. the batch sums of the small gradients and of bf

@@ -9,8 +9,11 @@ launches the hand-written kernel in ``csrc/trunk_fwd.cu`` (which replaces
 tensors it runs :func:`twin_trunks_plain`.  :func:`twin_trunks_grads` is the
 backward: the twelve weight gradients from the feature cotangent, launched
 from ``csrc/trunk_bwd.cu`` (which replaces ``trunk_pallas.py::_bwd_kernel``)
-or, on CPU tensors, :func:`twin_trunks_grads_plain`.  There is no fallback
-between kernel and plain version.  Where autograd needs the weights'
+or, on CPU tensors, :func:`twin_trunks_grads_plain`.  Both kernels are a
+conv pass and products on one shared core; :func:`plan` says how they cut a
+batch (samples per conv block, split-K ranges) and sizes their workspace,
+which the wrappers allocate.  There is no fallback between kernel and plain
+version.  Where autograd needs the weights'
 gradients, :func:`twin_trunks` goes through :class:`TwinTrunks`, which pairs
 the two; like the JAX package's custom_vjp, it gives no gradient to the
 scans.
@@ -20,6 +23,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -76,20 +80,181 @@ def twin_trunks_grads_plain(scans, act, crt, g) -> tuple[tuple, tuple]:
     return tuple(grads[:6]), tuple(grads[6:])
 
 
+#: Constants of the kernels' launch plan, as ``csrc/trunk_gemm.cuh`` and
+#: ``csrc/trunk_conv.cuh`` define them: the product core's 128 x 128 block
+#: tile and 16-deep k tile, the forward conv pass's two samples per step,
+#: the frames and beam counts the kernels take.
+GEMM_TILE, GEMM_K_TILE = 128, 16
+FWD_GROUP = 2
+MAX_FRAMES = 6
+MAX_SPLITS = 16
+#: Blocks of the product core and of the conv passes that fit on one SM.
+BLOCKS_PER_SM = 2
+#: The SM count the plan assumes when it is not given one (an H100 SXM).
+H100_SMS = 132
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split(n: int, parts: int) -> tuple[int, int]:
+    """``n`` items in at most ``parts`` ranges of ``chunk`` items: range i is
+    [i * chunk, min((i + 1) * chunk, n)).  Returns (chunk, ranges), with
+    ranges chosen so that none is empty; the kernels cut the same way."""
+    chunk = ceil_div(n, parts)
+    return chunk, ceil_div(n, chunk)
+
+
+def ranges(n: int, chunk: int) -> list[tuple[int, int]]:
+    """The ranges :func:`split` describes."""
+    return [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+
+
+def _fill(blocks: int, slots: int) -> float:
+    """Share of the block slots that ``blocks`` keep busy over its waves."""
+    return blocks / (ceil_div(blocks, slots) * slots)
+
+
+def k_splits(tiles: int, ktiles: int, slots: int) -> int:
+    """Split-K ranges for a product of ``tiles`` output tiles (both trunks)
+    and ``ktiles`` k tiles: the fewest whose waves fill at least 90% as well
+    as the best count up to :data:`MAX_SPLITS`."""
+    counts = range(1, min(MAX_SPLITS, ktiles) + 1)
+    best = max(_fill(tiles * s, slots) for s in counts)
+    s = next(s for s in counts if _fill(tiles * s, slots) >= 0.9 * best)
+    return split(ktiles, s)[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the trunk kernels cut a batch of ``batch`` samples of (frames,
+    beams) scans: samples per conv block, split-K ranges of fc1 (forward and
+    its recompute in the backward) and of dWf, and the workspace each kernel
+    needs, in floats."""
+    batch: int
+    frames: int
+    beams: int
+    conv_per_block: int
+    fc1_splits: int
+    dwf_splits: int
+
+    @property
+    def nflat(self) -> int:
+        return _weight_shapes(self.frames, self.beams)["wf"][1]
+
+    @property
+    def conv_blocks(self) -> int:
+        return ceil_div(self.batch, self.conv_per_block)
+
+    @property
+    def fc1_kchunk(self) -> int:
+        """k tiles per fc1 split range (K = nflat)."""
+        return ceil_div(ceil_div(self.nflat, GEMM_K_TILE), self.fc1_splits)
+
+    @property
+    def dwf_kchunk(self) -> int:
+        """k tiles per dWf split range (K = the batch)."""
+        return ceil_div(ceil_div(self.batch, GEMM_K_TILE), self.dwf_splits)
+
+    def _part(self, m: int, n: int, splits: int) -> int:
+        return 2 * splits * m * n if splits > 1 else 0
+
+    def fwd_regions(self) -> dict[str, tuple[int, int]]:
+        """(offset, floats) of each part of the forward's workspace: the flat
+        features (2, B, nflat), then fc1's split-K partials."""
+        flat = 2 * self.batch * self.nflat
+        return {"flat": (0, flat),
+                "fc1_part": (flat, self._part(self.batch, 256,
+                                              self.fc1_splits))}
+
+    def bwd_regions(self) -> dict[str, tuple[int, int]]:
+        """(offset, floats) of each part of the backward's workspace: the
+        flat features (g2 later), g1, the conv blocks' partials, and the
+        split-K partials of fc1's recompute and of dWf, which share a
+        region."""
+        b, nflat = self.batch, self.nflat
+        psize = 32 * self.frames * 5 + 32 + 32 * 32 * 3 + 32
+        out, at = {}, 0
+        for name, n in (("flat", 2 * b * nflat), ("g1", 2 * b * 256),
+                        ("conv_part", 2 * self.conv_blocks * psize),
+                        ("k_part", max(self._part(b, 256, self.fc1_splits),
+                                       self._part(256, nflat,
+                                                  self.dwf_splits)))):
+            out[name] = (at, n)
+            at += n
+        return out
+
+    @property
+    def fwd_workspace(self) -> int:
+        return sum(self.fwd_regions()["fc1_part"])
+
+    @property
+    def bwd_workspace(self) -> int:
+        return sum(self.bwd_regions()["k_part"])
+
+
+def plan(batch: int, frames: int, beams: int, sms: int = H100_SMS) -> Plan:
+    """The launch plan for ``batch`` samples on a card with ``sms`` SMs: the
+    conv passes give each trunk ~``sms`` blocks (two trunks, two blocks an
+    SM: one wave), and the products split K where their tiles alone would
+    fill the card's block slots poorly."""
+    groups_per_block, _ = split(ceil_div(batch, FWD_GROUP), sms)
+    nflat = _weight_shapes(frames, beams)["wf"][1]
+    slots = BLOCKS_PER_SM * sms
+    fc1 = k_splits(2 * ceil_div(batch, GEMM_TILE) * ceil_div(256, GEMM_TILE),
+                   ceil_div(nflat, GEMM_K_TILE), slots)
+    dwf = k_splits(2 * ceil_div(256, GEMM_TILE) * ceil_div(nflat, GEMM_TILE),
+                   ceil_div(batch, GEMM_K_TILE), slots)
+    return Plan(batch, frames, beams, FWD_GROUP * groups_per_block, fc1, dwf)
+
+
+def plan_for(scans: torch.Tensor) -> Plan:
+    """The plan for these (B, F, NB) scans on their card (an H100's SM count
+    for CPU tensors)."""
+    sms = (_sm_count(scans.device.index or 0) if scans.is_cuda
+           else H100_SMS)
+    return plan(*scans.shape, sms)
+
+
+def kernel_shapes_ok(frames: int, beams: int) -> bool:
+    """The scan shapes the trunk kernels take: 1 to :data:`MAX_FRAMES`
+    frames and a beam count that is a positive multiple of 16."""
+    return 1 <= frames <= MAX_FRAMES and beams >= 16 and beams % 16 == 0
+
+
 @functools.lru_cache(maxsize=None)
 def _launchers():
     lib = build.library()
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = lib.trunk_fwd_launch
-    fwd.argtypes = [p, ctypes.POINTER(ctypes.c_void_p), p, i, i, i, i, p]
+    fwd.argtypes = [p, ctypes.POINTER(ctypes.c_void_p), p, p, ll, i, i, i, i,
+                    i, i, p]
     fwd.restype = ctypes.c_int
     bwd = lib.trunk_bwd_launch
-    bwd.argtypes = [p, ctypes.POINTER(ctypes.c_void_p), p, p, p, i, i, i, i,
-                    p]
+    bwd.argtypes = [p, ctypes.POINTER(ctypes.c_void_p), p, p, p, ll, i, i, i,
+                    i, i, i, i, p]
     bwd.restype = ctypes.c_int
-    work = lib.trunk_bwd_workspace_floats
-    work.argtypes, work.restype = [i, i, i], ctypes.c_longlong
-    return fwd, bwd, work
+    return fwd, bwd
+
+
+@functools.lru_cache(maxsize=None)
+def workspace_counters():
+    """The kernels' own workspace counts, ``trunk_fwd_workspace_floats(B,
+    F, NB, fc1_splits)`` and ``trunk_bwd_workspace_floats(B, F, NB,
+    conv_per_block, fc1_splits, dwf_splits)``: what the launchers hold the
+    wrapper's workspace to."""
+    lib = build.library()
+    i = ctypes.c_int
+    fwd, bwd = lib.trunk_fwd_workspace_floats, lib.trunk_bwd_workspace_floats
+    fwd.argtypes, fwd.restype = [i] * 4, ctypes.c_longlong
+    bwd.argtypes, bwd.restype = [i] * 6, ctypes.c_longlong
+    return fwd, bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _require(cond: bool, what: str, msg: str) -> None:
@@ -108,6 +273,10 @@ def _check_cuda(what: str, scans, weights, extra=()) -> dict:
     """What both kernels need of their inputs; returns the weight shapes."""
     _require(scans.is_cuda, what, f"unsupported device {scans.device}")
     _require(scans.dim() == 3, what, f"scans has shape {tuple(scans.shape)}")
+    _require(kernel_shapes_ok(*scans.shape[1:]), what,
+             f"scans of {scans.shape[1]} frames x {scans.shape[2]} beams; the "
+             f"kernels take 1 to {MAX_FRAMES} frames and a multiple of 16 "
+             f"beams")
     shapes = _weight_shapes(*scans.shape[1:])
     _require(len(weights) == 12, what, "needs six weights per trunk")
     for name, t in zip(WEIGHT_NAMES * 2, weights):
@@ -118,6 +287,8 @@ def _check_cuda(what: str, scans, weights, extra=()) -> dict:
                  f"{t.device}, scans on {scans.device}")
         _require(t.dtype == torch.float32, what, "tensors must be float32")
         _require(t.is_contiguous(), what, "tensors must be contiguous")
+        _require(t.data_ptr() % 16 == 0, what,
+                 "tensors must start on a 16-byte boundary")
     return shapes
 
 
@@ -127,10 +298,15 @@ def _kernel_forward(scans, weights) -> torch.Tensor:
     out = torch.empty((2, b, 256), dtype=torch.float32, device=scans.device)
     if b == 0:
         return out
+    index = scans.device.index or 0
+    pl = plan_for(scans)
+    work = torch.empty(pl.fwd_workspace, dtype=torch.float32,
+                       device=scans.device)
     ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in weights))
     stream = torch.cuda.current_stream(scans.device).cuda_stream
-    status = _launchers()[0](scans.data_ptr(), ptrs, out.data_ptr(), b,
-                             frames, beams, scans.device.index or 0, stream)
+    status = _launchers()[0](scans.data_ptr(), ptrs, out.data_ptr(),
+                             work.data_ptr(), work.numel(), b, frames, beams,
+                             pl.conv_per_block, pl.fc1_splits, index, stream)
     build.check(status, "twin_trunks")
     global launches
     launches += 1
@@ -198,16 +374,17 @@ def _kernel_grads(scans, weights, g) -> tuple[tuple, tuple]:
     if b == 0:
         grads.zero_()
     else:
-        _, launch, work_floats = _launchers()
-        work = torch.empty(work_floats(b, frames, beams), dtype=torch.float32,
+        index = scans.device.index or 0
+        pl = plan_for(scans)
+        work = torch.empty(pl.bwd_workspace, dtype=torch.float32,
                            device=scans.device)
         ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in weights))
         stream = torch.cuda.current_stream(scans.device).cuda_stream
-        status = launch(scans.data_ptr(), ptrs, g.data_ptr(),
-                        grads.data_ptr(), work.data_ptr(), b, frames, beams,
-                        scans.device.index or 0, stream)
-        # the kernel refuses more frames than it keeps sums for (kMaxFrames)
-        build.check(status, f"twin_trunks_grads ({frames} frames)")
+        status = _launchers()[1](
+            scans.data_ptr(), ptrs, g.data_ptr(), grads.data_ptr(),
+            work.data_ptr(), work.numel(), b, frames, beams,
+            pl.conv_per_block, pl.fc1_splits, pl.dwf_splits, index, stream)
+        build.check(status, "twin_trunks_grads")
         global bwd_launches
         bwd_launches += 1
     act, crt = (tuple(part.view(shapes[n]) for part, n in

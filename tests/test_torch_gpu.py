@@ -59,7 +59,7 @@ def test_lidar_kernel_rejects_bad_input(cuda):
                              *_lidar_args(env)[1:])
 
 
-@pytest.mark.parametrize("batch", [1, 37, 3072])
+@pytest.mark.parametrize("batch", [1, 37, 768, 1000, 3072])
 def test_trunk_kernel_matches_plain(cuda, batch):
     torch.manual_seed(batch)
     policy = CNNPolicy().to(cuda)
@@ -72,6 +72,37 @@ def test_trunk_kernel_matches_plain(cuda, batch):
         want = trunk_cuda.twin_trunks_plain(scans, act, crt)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=TRUNK_TOL, rtol=TRUNK_TOL)
+
+
+def test_trunk_kernel_is_deterministic(cuda):
+    """No float atomics in the split-K sums: two launches agree bit for
+    bit, at a batch whose fc1 is split (768) and one whose is not."""
+    for batch in (768, 4099):
+        scans, act, crt, _ = _bwd_inputs(cuda, batch, seed=3)
+        with torch.no_grad():
+            first = trunk_cuda.twin_trunks(scans, act, crt)
+            second = trunk_cuda.twin_trunks(scans, act, crt)
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("batch", [1, 37, 768, 3072, 4099, 32768])
+def test_trunk_workspace_plan_matches_the_kernels(cuda, batch):
+    """The wrapper's workspace sizes equal the launchers' own counts."""
+    fwd, bwd = trunk_cuda.workspace_counters()
+    pl = trunk_cuda.plan_for(torch.empty(batch, 3, 512, device=cuda))
+    assert fwd(batch, 3, 512, pl.fc1_splits) == pl.fwd_workspace
+    assert bwd(batch, 3, 512, pl.conv_per_block, pl.fc1_splits,
+               pl.dwf_splits) == pl.bwd_workspace
+
+
+def test_trunk_kernel_refuses_unsupported_scans(cuda):
+    """Beam counts that are not a multiple of 16, or more frames than the
+    kernels keep sums for, raise instead of falling back."""
+    scans = torch.zeros(4, 3, 500, device=cuda)
+    policy = CNNPolicy(beams=500).to(cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 16"):
+        trunk_cuda.twin_trunks(scans, policy.trunk_weights("act"),
+                               policy.trunk_weights("crt"))
 
 
 def test_trunk_kernel_refuses_autograd(cuda):
@@ -111,6 +142,62 @@ def test_trunk_bwd_kernel_matches_plain(cuda, batch):
         scale = float(b.abs().max())
         torch.testing.assert_close(a.double(), b, atol=1e-5 * scale, rtol=0,
                                    msg=name)
+
+
+@pytest.mark.parametrize("batch", [37, 1000, 4099])
+def test_trunk_bwd_kernel_within_rounding_limit(cuda, batch):
+    """Against the plain version in float64 at batches ragged against the
+    128-sample tiles, the split-K ranges and the conv blocks, held as
+    chip_smoke.py holds B = 32,768: each gradient element within BWD_TOL of
+    the sum of its terms' absolute values, plus the whole terms behind fc1
+    ReLUs that float32 may turn either way (at B = 4,099 one such flip moves
+    a conv gradient by ~1e-3 of its largest value, far above 1e-5 of it, in
+    the kernel and not in cuBLAS, whose sums round otherwise)."""
+    import chip_smoke
+
+    scans, act, crt, g = _bwd_inputs(cuda, batch)
+    got = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
+    f64 = lambda ws: [w.double() for w in ws]
+    want = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
+                                              f64(crt), g.double())
+    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g)
+    torch.cuda.synchronize()
+    for t in range(2):
+        for name, a, b, scale, near in zip(trunk_cuda.WEIGHT_NAMES, got[t],
+                                           want[t], *limits[t]):
+            limit = chip_smoke.BWD_TOL * scale + near
+            assert bool(torch.isfinite(a).all()), name
+            assert bool(((a.double() - b).abs() <= limit).all()), (t, name)
+
+
+@pytest.mark.parametrize("frames,beams", [(3, 64), (1, 16), (6, 128)])
+def test_trunk_kernels_other_scan_shapes(cuda, frames, beams):
+    """The kernels take 1-6 frames and beam counts that are multiples of 16
+    (the mini world has 64 beams): forward and backward against the plain
+    versions, with the tolerances of the stage-1 tests above."""
+    import chip_smoke
+
+    torch.manual_seed(frames * beams)
+    policy = CNNPolicy(frames=frames, beams=beams).to(cuda)
+    scans = torch.rand(45, frames, beams, device=cuda) - 0.5
+    g = torch.randn(2, 45, 256, device=cuda)
+    act = [w.detach() for w in policy.trunk_weights("act")]
+    crt = [w.detach() for w in policy.trunk_weights("crt")]
+    with torch.no_grad():
+        got = trunk_cuda.twin_trunks(scans, act, crt)
+        want = trunk_cuda.twin_trunks_plain(scans, act, crt)
+    torch.testing.assert_close(got, want, atol=TRUNK_TOL, rtol=TRUNK_TOL)
+    grads = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
+    f64 = lambda ws: [w.double() for w in ws]
+    ref = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
+                                             f64(crt), g.double())
+    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g)
+    torch.cuda.synchronize()
+    for t in range(2):
+        for name, a, b, scale, near in zip(trunk_cuda.WEIGHT_NAMES, grads[t],
+                                           ref[t], *limits[t]):
+            assert bool(((a.double() - b).abs()
+                         <= chip_smoke.BWD_TOL * scale + near).all()), name
 
 
 def test_trunk_bwd_kernel_is_deterministic(cuda):
