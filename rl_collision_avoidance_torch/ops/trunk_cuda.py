@@ -257,9 +257,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _require(cond: bool, what: str, msg: str) -> None:
+def _require(cond: bool, what: str, msg) -> None:
+    """Raise ValueError with ``msg()`` when ``cond`` fails; the message is
+    built only then."""
     if not cond:
-        raise ValueError(f"{what}: {msg}")
+        raise ValueError(f"{what}: {msg()}")
 
 
 def _weight_shapes(frames: int, beams: int) -> dict:
@@ -271,24 +273,27 @@ def _weight_shapes(frames: int, beams: int) -> dict:
 
 def _check_cuda(what: str, scans, weights, extra=()) -> dict:
     """What both kernels need of their inputs; returns the weight shapes."""
-    _require(scans.is_cuda, what, f"unsupported device {scans.device}")
-    _require(scans.dim() == 3, what, f"scans has shape {tuple(scans.shape)}")
+    _require(scans.is_cuda, what,
+             lambda: f"unsupported device {scans.device}")
+    _require(scans.dim() == 3, what,
+             lambda: f"scans has shape {tuple(scans.shape)}")
     _require(kernel_shapes_ok(*scans.shape[1:]), what,
-             f"scans of {scans.shape[1]} frames x {scans.shape[2]} beams; the "
-             f"kernels take 1 to {MAX_FRAMES} frames and a multiple of 16 "
-             f"beams")
+             lambda: f"scans of {scans.shape[1]} frames x {scans.shape[2]} "
+             f"beams; the kernels take 1 to {MAX_FRAMES} frames and a "
+             f"multiple of 16 beams")
     shapes = _weight_shapes(*scans.shape[1:])
-    _require(len(weights) == 12, what, "needs six weights per trunk")
+    _require(len(weights) == 12, what, lambda: "needs six weights per trunk")
     for name, t in zip(WEIGHT_NAMES * 2, weights):
-        _require(tuple(t.shape) == shapes[name], what,
-                 f"{name} has shape {tuple(t.shape)}, wants {shapes[name]}")
+        _require(t.shape == shapes[name], what, lambda: f"{name} has shape "
+                 f"{tuple(t.shape)}, wants {shapes[name]}")
     for t in [scans, *weights, *extra]:
-        _require(t.device == scans.device, what, f"a tensor is on "
-                 f"{t.device}, scans on {scans.device}")
-        _require(t.dtype == torch.float32, what, "tensors must be float32")
-        _require(t.is_contiguous(), what, "tensors must be contiguous")
+        _require(t.device == scans.device, what,
+                 lambda: f"a tensor is on {t.device}, scans on {scans.device}")
+        _require(t.dtype == torch.float32, what,
+                 lambda: "tensors must be float32")
+        _require(t.is_contiguous(), what, lambda: "tensors must be contiguous")
         _require(t.data_ptr() % 16 == 0, what,
-                 "tensors must start on a 16-byte boundary")
+                 lambda: "tensors must start on a 16-byte boundary")
     return shapes
 
 
@@ -366,8 +371,8 @@ def twin_trunks_grads(scans, act, crt, g) -> tuple[tuple, tuple]:
 def _kernel_grads(scans, weights, g) -> tuple[tuple, tuple]:
     shapes = _check_cuda("twin_trunks_grads", scans, weights, (g,))
     b, frames, beams = scans.shape
-    _require(tuple(g.shape) == (2, b, 256), "twin_trunks_grads",
-             f"g has shape {tuple(g.shape)}, wants {(2, b, 256)}")
+    _require(g.shape == (2, b, 256), "twin_trunks_grads",
+             lambda: f"g has shape {tuple(g.shape)}, wants {(2, b, 256)}")
     sizes = [torch.Size(shapes[n]).numel() for n in WEIGHT_NAMES]
     grads = torch.empty((2, sum(sizes)), dtype=torch.float32,
                         device=scans.device)

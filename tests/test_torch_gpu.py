@@ -47,16 +47,46 @@ def test_lidar_kernel_matches_plain(cuda, make_spec, arenas):
     torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("n", [24, 50])
+def test_lidar_kernel_on_adversarial_arena(cuda, n):
+    """The culling rules' edge cases (lidar_cuda.adversarial_poses) on the
+    stage-1 walls, with 24 robots and with 50 (more than a warp): within
+    LIDAR_ATOL of the plain version, and bit-equal over two launches."""
+    env = Env(stage1(), device=cuda)
+    s = env.spec
+    base = torch.from_numpy(lidar_cuda.adversarial_poses(s, n,
+                                                         seed=n)).to(cuda)
+    shift = env.sample_pose_goal(1)[0][0, 0]     # one seeded spawn pose
+    pose = torch.cat([base, base + shift]).contiguous()
+    got = lidar_cuda.lidar_obs(pose, *_lidar_args(env))
+    again = lidar_cuda.lidar_obs(pose, *_lidar_args(env))
+    want = lidar_cuda.lidar_obs_plain(pose, *_lidar_args(env))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (want < 0.5 / s.max_range - 0.5).any()   # a disc inside 0.5 m
+    torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
+
+
 def test_lidar_kernel_rejects_bad_input(cuda):
     env = Env(mini(), device=cuda)
     pose, _ = env.sample_pose_goal(2)
+    args = _lidar_args(env)
     with pytest.raises(ValueError):
-        lidar_cuda.lidar_obs(pose.double(), *_lidar_args(env))
+        lidar_cuda.lidar_obs(pose.double(), *args)
     with pytest.raises(ValueError):
-        lidar_cuda.lidar_obs(pose.transpose(0, 1), *_lidar_args(env))
+        lidar_cuda.lidar_obs(pose.transpose(0, 1), *args)
     with pytest.raises(ValueError):
-        lidar_cuda.lidar_obs(pose, env._lidar_cells.cpu(),
-                             *_lidar_args(env)[1:])
+        lidar_cuda.lidar_obs(pose, env._lidar_cells.cpu(), *args[1:])
+    with pytest.raises(ValueError):         # table rows against the grid
+        lidar_cuda.lidar_obs(pose, env._lidar_cells[1:], *args[1:])
+    table = env._lidar_cells
+    shifted = torch.empty(table.numel() + 1, device=cuda)[1:].view(
+        table.shape).copy_(table)
+    with pytest.raises(ValueError):         # table not 16-byte aligned
+        lidar_cuda.lidar_obs(pose, shifted, *args[1:])
+    with pytest.raises(ValueError):         # dirs of the wrong last dim
+        lidar_cuda.lidar_obs(pose, *args[:4], env.local_dirs[:, :1],
+                             *args[5:])
 
 
 @pytest.mark.parametrize("batch", [1, 37, 768, 1000, 3072])
