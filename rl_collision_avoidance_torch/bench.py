@@ -1,6 +1,7 @@
-"""Benchmarks of the port on the CUDA card: stage-1 acting (policy
-forward, Gaussian sample and env step, batched over arenas) and, with
-``--train``, stage-1 training updates.
+"""Benchmarks of the port on the CUDA card: acting (policy forward,
+Gaussian sample and env step, batched over arenas) and, with ``--train``,
+training updates under the world's preset (stage 1; ``--world stage2``,
+``--world circle_train`` for stage 2 and the circle fine-tune).
 
 Counterparts of the acting mode of ``rl_collision_avoidance_tpu/bench.py``
 (its ``one_step``) and of its ``measure_training``.  Times come from CUDA
@@ -14,6 +15,8 @@ training.  Usage::
     python -m rl_collision_avoidance_torch.bench --arenas 128 --steps 256
     python -m rl_collision_avoidance_torch.bench --profile --steps 20
     python -m rl_collision_avoidance_torch.bench --train [--profile] --arenas 32
+    python -m rl_collision_avoidance_torch.bench --train --profile \
+        --world stage2 --arenas 16
 """
 from __future__ import annotations
 
@@ -148,18 +151,19 @@ def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
 
 
 def _trainer(arenas: int, world: str, seed: int):
-    """A stage-1 trainer on the card and its state after one warm-up
-    update (random init, as the JAX package's ``measure_training``)."""
-    trainer = Trainer(TrainConfig.stage1(n_arenas=arenas, world=world,
-                                         seed=seed))
+    """A trainer on the card with the world's preset
+    (``TrainConfig.for_world``) and its state after one warm-up update
+    (random init, as the JAX package's ``measure_training``)."""
+    trainer = Trainer(TrainConfig.for_world(world, n_arenas=arenas,
+                                            seed=seed))
     state, _ = trainer.train_step(trainer.init_state())
     return trainer, state
 
 
 def measure_training(arenas: int = 32, repeats: int = 3,
                      world: str = "stage1", seed: int = 0) -> dict:
-    """Stage-1 training robot-steps/s: the best of ``repeats`` updates
-    (rollout + GAE + PPO), each timed with CUDA events."""
+    """Training robot-steps/s: the best of ``repeats`` updates (rollout +
+    GAE + PPO), each timed with CUDA events."""
     trainer, state = _trainer(arenas, world, seed)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -171,7 +175,7 @@ def measure_training(arenas: int = 32, repeats: int = 3,
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     steps = metrics["env_steps"]
-    return {"metric": "stage1_training_steps_per_s",
+    return {"metric": "training_steps_per_s", "world": world,
             "value": steps / min(times) * 1e3, "unit": "robot-steps/s",
             "arenas": arenas, "env_steps_per_update": steps,
             "update_ms": times, "device": torch.cuda.get_device_name(),
@@ -246,8 +250,9 @@ def main(argv=None):
                     help="trace the window and report device time by kernel "
                          "(acting) or by phase (--train)")
     ap.add_argument("--train", action="store_true",
-                    help="time stage-1 training updates (random init) "
-                         "instead of acting; --arenas defaults to 32")
+                    help="time training updates (random init, the "
+                         "world's preset) instead of acting; --arenas "
+                         "defaults to 32")
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed updates with --train (the best is reported)")
     args = ap.parse_args(argv)

@@ -1,86 +1,170 @@
 """Command-line entry points of the port (counterpart of
-``rl_collision_avoidance_tpu/cli.py``).  Stage-1 training only, so far::
+``rl_collision_avoidance_tpu/cli.py``): the curriculum and its eval::
 
     python -m rl_collision_avoidance_torch.cli train-stage1 --updates 5 --arenas 32
+    python -m rl_collision_avoidance_torch.cli train-stage2 \
+        --warm-start results/stage1_params.npz --updates 2 --arenas 16
+    python -m rl_collision_avoidance_torch.cli train-circle \
+        --warm-start results/stage2_params.npz --updates 2 --arenas 16
+    python -m rl_collision_avoidance_torch.cli circle-test \
+        --params results/circle_ft_params.npz --arenas 32 --pose-noise 0.1
 
-Runs on the CUDA card (``--device cpu`` for the plain PyTorch path).  Logs
-through ``utils/metrics.MetricLogger`` into ``--log-dir`` (default
-``log/<hostname>``) and writes the final params there as a JAX-format npz
-(``--out`` to put it elsewhere), which ``--warm-start`` and the JAX
-package's ``load_params_npz`` both read.
+Runs on the CUDA card (``--device cpu`` for the plain PyTorch path).  The
+training commands log through ``utils/metrics.MetricLogger`` into
+``--log-dir`` (default ``log/<hostname>``) and write the final params there
+as a JAX-format npz named after the stage (``--out`` to put it elsewhere),
+which ``--warm-start`` and the JAX package's ``load_params_npz`` both read.
+With ``--checkpoint-dir`` they save the full train state every 20 updates
+under ``<dir>/<stage>`` and ``--resume`` continues from the newest one
+(unlike the JAX command, no full-state checkpoint is written by default).
+``circle-test`` prints its metrics as one JSON line, as the JAX command
+does.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 
 import torch
 
+#: Subcommand -> the stage name of its TrainConfig preset.
+STAGES = {"train-stage1": "stage1", "train-stage2": "stage2",
+          "train-circle": "circle_ft"}
 
-def _add_stage1(p):
+
+def _add_train(p):
     p.add_argument("--arenas", type=int, default=1,
                    help="world replicas (default 1, the reference's one "
                         "world)")
     p.add_argument("--updates", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-dir", type=str, default=None)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="save the full train state every 20 updates under "
+                        "<dir>/<stage> (default: none)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint under "
+                        "--checkpoint-dir, if there is one")
     p.add_argument("--warm-start", type=str, default=None,
                    help="params npz (JAX save_params_npz format) to start "
                         "from (curriculum transfer, ppo_stage2.py:194-200)")
     p.add_argument("--logstd-min", type=float, default=None,
                    help="floor for the policy logstd, projected after every "
-                        "optimizer step (default: none, as the reference)")
+                        "optimizer step (default: none for stages 1 and 2, "
+                        "-2.0 for the circle fine-tune)")
     p.add_argument("--world", type=str, default=None,
                    help="override the stage's world (testing; the preset "
-                        "picks stage1)")
+                        "picks its parity world)")
     p.add_argument("--batch-size", type=int, default=None,
                    help="override the PPO minibatch size (default: the "
                         "stage preset scaled by the arena count)")
     p.add_argument("--out", type=str, default=None,
                    help="where to write the final params npz (default: "
-                        "<log dir>/stage1_params.npz)")
+                        "<log dir>/<stage>_params.npz)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
 
 
-def train_stage1(args) -> str:
-    """Run stage-1 training as ``args`` say; returns the params npz path."""
-    from .train import TrainConfig, Trainer
+def _add_circle(p):
+    p.add_argument("--params", type=str, default=None,
+                   help="params npz (JAX save_params_npz format); a "
+                        "random-init policy if omitted")
+    p.add_argument("--max-steps", type=int, default=2000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--arenas", type=int, default=1,
+                   help="replicas of the scenario (with --pose-noise: a "
+                        "robustness study with mean and std across arenas)")
+    p.add_argument("--pose-noise", type=float, default=0.0,
+                   help="uniform per-robot initial-pose jitter in meters "
+                        "(arena 0 always stays the exact reference scenario)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the CUDA card)")
+
+
+def train(stage: str, args) -> str:
+    """Run the training ``stage`` ("stage1", "stage2" or "circle_ft") as
+    ``args`` say; returns the params npz path."""
+    from .train import Trainer
+    from .train.trainer import PRESETS
+    from .utils.checkpoint import CheckpointManager
     from .utils.metrics import MetricLogger
     from .utils.params import (jax_params_to_torch, load_jax_npz,
                                save_params_npz, torch_to_jax_params)
 
-    cfg = TrainConfig.stage1(n_arenas=args.arenas, seed=args.seed,
-                             max_updates=args.updates)
+    cfg = PRESETS[stage](n_arenas=args.arenas, seed=args.seed,
+                         max_updates=args.updates)
     if args.world is not None:
         cfg.world = args.world
     if args.batch_size is not None:
         cfg.ppo = cfg.ppo._replace(batch_size=args.batch_size)
     if args.logstd_min is not None:
         cfg.ppo = cfg.ppo._replace(logstd_min=args.logstd_min)
+    if args.resume and args.checkpoint_dir is None:
+        raise SystemExit("--resume needs --checkpoint-dir")
     trainer = Trainer(cfg, device=args.device)
     logger = MetricLogger(args.log_dir)
-    state = trainer.init_state()
-    if args.warm_start:
-        sd = jax_params_to_torch(load_jax_npz(args.warm_start))
-        with torch.no_grad():
-            state.policy.load_state_dict(sd)
+    ckpt = (CheckpointManager(os.path.join(args.checkpoint_dir, stage))
+            if args.checkpoint_dir is not None else None)
+    latest = ckpt.latest_step() if args.resume else None
+    if latest is not None:
+        state = trainer.load_state_dict(ckpt.restore(latest, trainer.device))
+        print(f"resumed from {ckpt.directory} at update {latest}", flush=True)
+    else:
+        state = trainer.init_state()
+        if args.warm_start:
+            sd = jax_params_to_torch(load_jax_npz(args.warm_start))
+            with torch.no_grad():
+                state.policy.load_state_dict(sd)
     state = trainer.train(state, updates=args.updates,
-                          log_fn=logger.log_update)
-    out = args.out or os.path.join(logger.log_dir, "stage1_params.npz")
+                          log_fn=logger.log_update, checkpoint_manager=ckpt)
+    out = args.out or os.path.join(logger.log_dir, f"{stage}_params.npz")
     save_params_npz(out, torch_to_jax_params(state.policy.state_dict()))
     print(f"wrote {out}", flush=True)
     return out
 
 
+def circle_test(args) -> dict:
+    """The circle-50 eval as ``args`` say; prints and returns the metrics."""
+    from .eval import run_circle_eval
+    from .models import CNNPolicy, load_policy
+    from .utils.device import resolve_device
+
+    if args.params:
+        policy = load_policy(args.params, device=args.device)
+    else:
+        # The reference exits without a checkpoint (circle_test.py:116-118);
+        # as the JAX command, evaluate a random policy, but say so.
+        print("warning: no --params given, evaluating a random policy",
+              file=sys.stderr)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            policy = CNNPolicy()
+        policy = policy.to(resolve_device(args.device)).eval()
+    metrics = run_circle_eval(policy, max_steps=args.max_steps,
+                              seed=args.seed, n_arenas=args.arenas,
+                              pose_noise=args.pose_noise)
+    print(json.dumps(metrics), flush=True)
+    return metrics
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rl_collision_avoidance_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
-    _add_stage1(sub.add_parser("train-stage1",
-                               help="train stage 1 (random rink)"))
+    for cmd, what in (("train-stage1", "train stage 1 (random rink)"),
+                      ("train-stage2", "train stage 2 (structured map)"),
+                      ("train-circle", "fine-tune on the jittered 50-robot "
+                                       "circle swap (warm-start from stage-2 "
+                                       "params)")):
+        _add_train(sub.add_parser(cmd, help=what))
+    _add_circle(sub.add_parser("circle-test",
+                               help="50-robot circle-swap evaluation"))
     args = p.parse_args(argv)
-    if args.cmd == "train-stage1":
-        train_stage1(args)
+    if args.cmd == "circle-test":
+        circle_test(args)
+    else:
+        train(STAGES[args.cmd], args)
 
 
 if __name__ == "__main__":

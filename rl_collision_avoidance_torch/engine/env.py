@@ -1,15 +1,20 @@
 """The batched collision-avoidance environment: A arenas x N robots per step.
 
-Counterpart of ``rl_collision_avoidance_tpu/engine/env.py`` for the
-``RANDOM_DISC`` reset mode and the disc footprint (the stage-1 curriculum).
-One step, as in the JAX package and the reference (``stage_world1.py``):
+Counterpart of ``rl_collision_avoidance_tpu/engine/env.py`` for the disc
+footprint, in all three reset modes of the curriculum.  One step, as in the
+JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
+``circle_world.py``):
 
-1. clip the action to v in [0, 1], w in [-1, 1];
+1. dead robots (stage-2 ``liveflag``, finished circle robots) act with
+   v = 0, and w = 0 except in the circle eval, where they keep steering;
+   live robots apply the action clipped to v in [0, 1], w in [-1, 1];
 2. diff-drive integration; a robot whose candidate pose overlaps a wall or
    another robot keeps its previous pose (stall = crash);
-3. reward and termination (goal +15, crash -15, progress x 2.5, spin
-   penalty on the realized w, timeout);
-4. robots whose episode ended get a fresh pose and goal inside the step;
+3. reward and termination of the live robots (goal +15, crash -15,
+   progress x 2.5, spin penalty on the realized w, timeout);
+4. episode resets inside the step: per robot (``RANDOM_DISC``), per
+   scenario group once every member is done (``TABLES_THEN_CORRIDOR``; a
+   finished robot waits dead until then), or never (``FIXED_TABLES``);
 5. one lidar pass at the post-reset poses, pushed into the 3-frame history
    (a fresh robot's history is filled with its first frame).
 
@@ -31,7 +36,7 @@ from ..utils.device import resolve_device
 from ..worlds.spec import ResetMode, WorldSpec
 from . import physics, sampling
 from .celltable import build_cell_table, lookup_cells
-from .lidar import beam_directions_local
+from .lidar import beam_directions_local, sparse_beam_index
 
 # Action bounds [[v_min, w_min], [v_max, w_max]] (ppo_stage1.py:170).
 V_MIN, V_MAX = 0.0, 1.0
@@ -50,6 +55,7 @@ class EnvState:
     goal: torch.Tensor       # (A, N, 2)
     dist: torch.Tensor       # (A, N) distance to goal (the next step's "pre")
     step: torch.Tensor       # (A, N) int32 in-episode step counter
+    dead: torch.Tensor       # (A, N) bool terminal-but-not-reset (stage2/circle)
     scan_hist: torch.Tensor  # (A, N, F, B) normalized lidar frames, newest last
     ep_return: torch.Tensor  # (A, N) running episode reward
 
@@ -65,12 +71,11 @@ class Obs:
 class StepInfo:
     result: torch.Tensor     # (A, N) int result code of this step
     # (A, N) bool: the transition is usable for training, i.e. the robot was
-    # alive at the step's start.  No robot of a RANDOM_DISC world ever dies,
-    # so it is all True here; stage 2's dead robots will clear it.
+    # alive at the step's start.
     valid: torch.Tensor
     ep_return: torch.Tensor  # (A, N) episode return where an episode ended
-    reached: torch.Tensor    # (A, N) bool reached-goal event
-    crashed: torch.Tensor    # (A, N) bool crash event
+    reached: torch.Tensor    # (A, N) bool reached-goal event of a live robot
+    crashed: torch.Tensor    # (A, N) bool crash event of a live robot
 
 
 def local_goal(pose: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
@@ -82,21 +87,22 @@ def local_goal(pose: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
 
 
 class Env:
-    """Batched stage-1 env for one :class:`WorldSpec` on one device (the
-    CUDA card unless ``device`` says otherwise)."""
+    """Batched env for one :class:`WorldSpec` on one device (the CUDA card
+    unless ``device`` says otherwise)."""
 
     def __init__(self, spec: WorldSpec, device=None, seed: int = 0,
                  use_kernels: bool = True):
-        if (spec.reset_mode is not ResetMode.RANDOM_DISC
-                or spec.footprint != "disc"):
+        if spec.footprint != "disc":
             raise NotImplementedError(
-                "the port runs RANDOM_DISC worlds with the disc footprint")
+                "the port runs the disc footprint; the rect footprint is "
+                "not ported yet")
         self.spec = spec
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.n_robots = spec.n_robots
         self.frames = spec.laser_frames
+        self.obs_beams = spec.obs_beams or spec.n_beams
         as_tensor = lambda a: torch.as_tensor(a, device=self.device)
         # The lidar table pads K to a multiple of 8 as the JAX package's
         # kernel path does; the wall table only needs candidates within
@@ -111,34 +117,78 @@ class Env:
         self._wall_cells = as_tensor(self.wall_table.table)
         self.local_dirs = as_tensor(beam_directions_local(spec.n_beams,
                                                           spec.fov))
+        self._obs_idx = (None if self.obs_beams == spec.n_beams else
+                         as_tensor(sparse_beam_index(spec.n_beams,
+                                                     self.obs_beams)).long())
         self._scan = (lidar_cuda.lidar_obs if use_kernels
                       else lidar_cuda.lidar_obs_plain)
+        if spec.reset_mode is not ResetMode.RANDOM_DISC:
+            self._pose_table = as_tensor(spec.init_pose_table)
+            self._goal_table = as_tensor(spec.goal_table)
+            self._fixed = (torch.arange(self.n_robots, device=self.device)
+                           < spec.n_fixed)
+        if spec.group_id is not None:
+            gid = torch.as_tensor(spec.group_id, dtype=torch.long)
+            self._group_id = gid.to(self.device)
+            self._group_member = (gid[None, :] == torch.arange(
+                int(gid.max()) + 1)[:, None]).to(self.device)   # (G, N)
 
     # ------------------------------------------------------------------
 
     def scan_obs(self, pose: torch.Tensor) -> torch.Tensor:
-        """(A, N, 3) poses -> (A, N, B) normalized frame, range / max_range
-        - 0.5."""
+        """(A, N, 3) poses -> (A, N, obs_beams) normalized frame, range /
+        max_range - 0.5, after the optional sparse resample."""
         t = self.lidar_table
-        return self._scan(pose.contiguous(), self._lidar_cells, t.lo, t.cell,
+        scan = self._scan(pose.contiguous(), self._lidar_cells, t.lo, t.cell,
                           t.shape, self.local_dirs, self.spec.robot_radius,
                           self.spec.max_range)
+        return scan if self._obs_idx is None else scan[..., self._obs_idx]
 
     def obs(self, state: EnvState) -> Obs:
         return Obs(scans=state.scan_hist, goal=local_goal(state.pose,
                                                           state.goal),
                    speed=state.speed)
 
-    def sample_pose_goal(self, n_arenas: int):
-        """Fresh (pose (A, N, 3), goal (A, N, 2)) for every robot."""
-        spec = self.spec
-        pose = sampling.stage1_poses((n_arenas, self.n_robots),
-                                     spec.spawn_radius, self.generator,
-                                     self.device)
-        goal = sampling.stage1_goals(pose[..., :2], spec.spawn_radius,
-                                     spec.goal_dist_min, spec.goal_dist_max,
-                                     self.generator)
-        return pose, goal
+    def sample_pose_goal(self, n_arenas: int,
+                         cur_pose: torch.Tensor | None = None):
+        """Fresh (pose (A, N, 3), goal (A, N, 2)) for every robot; the env
+        applies them under its reset mask.  ``cur_pose`` (A, N, 3), zeros
+        when not given, is where the robots stand: a corridor pose lies at
+        least 7 m from it."""
+        spec, a, n = self.spec, n_arenas, self.n_robots
+        if spec.reset_mode is ResetMode.RANDOM_DISC:
+            pose = sampling.stage1_poses((a, n), spec.spawn_radius,
+                                         self.generator, self.device)
+            goal = sampling.stage1_goals(pose[..., :2], spec.spawn_radius,
+                                         spec.goal_dist_min,
+                                         spec.goal_dist_max, self.generator)
+            return pose, goal
+        # Table poses, optionally jittered (circle_train: uniform +-J on x/y
+        # at every reset; goals and headings stay exact).
+        pose = self._pose_table.expand(a, n, 3).clone()
+        goal = self._goal_table.expand(a, n, 2)
+        if spec.pose_jitter > 0.0:
+            u = torch.rand((a, n, 2), generator=self.generator,
+                           device=self.device)
+            pose[..., :2] += spec.pose_jitter * (2.0 * u - 1.0)
+        if (spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR
+                and spec.n_fixed < n):
+            if cur_pose is None:
+                cur_pose = torch.zeros((a, n, 3), device=self.device)
+            rpose = sampling.corridor_poses(cur_pose[..., :2], self.generator)
+            rgoal = sampling.corridor_goals(rpose[..., :2], self.generator)
+            fixed = self._fixed[:, None]
+            pose = torch.where(fixed, pose, rpose)
+            goal = torch.where(fixed, goal, rgoal)
+        return pose, goal.clone()
+
+    def _reset_dist(self, pose: torch.Tensor, goal: torch.Tensor):
+        """The first "previous distance": the true one (stage 1,
+        stage_world1.py:171-177) or 0 (stage 2 and circle,
+        stage_world2.py:170)."""
+        if self.spec.dist_prev_zero_on_reset:
+            return torch.zeros_like(pose[..., 0])
+        return torch.linalg.vector_norm(goal - pose[..., :2], dim=-1)
 
     def reset(self, n_arenas: int, pose: torch.Tensor | None = None,
               goal: torch.Tensor | None = None) -> tuple[EnvState, Obs]:
@@ -151,8 +201,9 @@ class Env:
         first = self.scan_obs(pose)
         state = EnvState(
             pose=pose, speed=torch.zeros_like(pose[..., :2]), goal=goal,
-            dist=torch.linalg.vector_norm(goal - pose[..., :2], dim=-1),
+            dist=self._reset_dist(pose, goal),
             step=torch.zeros_like(z, dtype=torch.int32),
+            dead=torch.zeros_like(z, dtype=torch.bool),
             scan_hist=first[:, :, None, :].repeat(1, 1, self.frames, 1),
             ep_return=z)
         return state, self.obs(state)
@@ -163,13 +214,20 @@ class Env:
         """One control step of all robots of all arenas.
 
         action (A, N, 2) raw policy samples, clipped here.  ``reset_pose`` /
-        ``reset_goal``: the fresh (pose, goal) sample for robots whose
-        episode ends (drawn from the env's generator when not given).
-        Returns (state', obs', reward, done, info).
+        ``reset_goal``: the fresh (pose, goal) sample of every robot, of
+        which the env takes those it resets (drawn from the env's generator
+        when not given; a ``FIXED_TABLES`` world never resets and ignores
+        them).  Returns (state', obs', reward, done, info); ``done`` stays
+        True while a robot is dead.
         """
         spec = self.spec
-        v = action[..., 0].clamp(V_MIN, V_MAX)
+        live = ~state.dead
+        v = action[..., 0].clamp(V_MIN, V_MAX) * live
         w = action[..., 1].clamp(W_MIN, W_MAX)
+        if spec.reset_mode is not ResetMode.FIXED_TABLES:
+            # Finished circle-eval robots keep steering with the policy's w
+            # but v := 0 (circle_test.py:64-66): they spin in place.
+            w = w * live
 
         cand = physics.integrate(state.pose, v, w, spec.dt, spec.substeps)
         t = self.wall_table
@@ -181,7 +239,7 @@ class Env:
                                                  spec.robot_radius)
         pose = torch.where(stalled[..., None], state.pose, cand)
 
-        steps = state.step + 1
+        steps = state.step + live.to(torch.int32)
         dist_new = torch.linalg.vector_norm(state.goal - pose[..., :2], dim=-1)
 
         # Reward (stage_world1.py:180-211).  The spin penalty reads the
@@ -194,38 +252,71 @@ class Env:
         w_real = w * ~stalled
         reward_w = torch.where(w_real.abs() > spec.omega_thresh,
                                -0.1 * w_real.abs(), 0.0)
-        reward = reward_g + reward_c + reward_w
+        reward = (reward_g + reward_c + reward_w) * live
 
-        terminal = reached | crashed | timeout
+        terminal = (reached | crashed | timeout) & live
         result = torch.where(
             timeout, RESULT_TIMEOUT,
             torch.where(crashed, RESULT_CRASH,
                         torch.where(reached, RESULT_GOAL, RESULT_RUNNING)))
+        result = torch.where(live, result, RESULT_RUNNING)
+
+        dead_after = state.dead | terminal
+        if spec.reset_mode is ResetMode.RANDOM_DISC:
+            reset_mask = terminal
+            dead_next = torch.zeros_like(dead_after)
+        elif spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR:
+            # Group-synchronized episode boundaries (model/utils.py:81-87).
+            group_done = (dead_after[:, None, :]
+                          | ~self._group_member).all(dim=-1)     # (A, G)
+            reset_mask = group_done[:, self._group_id]            # (A, N)
+            dead_next = dead_after & ~reset_mask
+        else:                                   # FIXED_TABLES: never reset
+            reset_mask = None
+            dead_next = dead_after
 
         if (reset_pose is None) != (reset_goal is None):
             raise ValueError("pass both reset_pose and reset_goal, or neither")
-        if reset_pose is None:
-            reset_pose, reset_goal = self.sample_pose_goal(pose.shape[0])
-        m = terminal[..., None]
-        pose = torch.where(m, reset_pose, pose)
-        goal = torch.where(m, reset_goal, state.goal)
-        dist = torch.where(
-            terminal, torch.linalg.vector_norm(goal - pose[..., :2], dim=-1),
-            dist_new)
-        # Speed obs: the applied (v, w); fresh resets start at rest.
-        speed = torch.where(m, 0.0, torch.stack([v, w], dim=-1))
         ep_return_now = state.ep_return + reward
+        goal, dist, step_ctr = state.goal, dist_new, steps
+        speed = torch.stack([v, w], dim=-1)
+        ep_return = ep_return_now
+        if reset_mask is not None:
+            if reset_pose is None:
+                reset_pose, reset_goal = self.sample_pose_goal(pose.shape[0],
+                                                               pose)
+            m = reset_mask[..., None]
+            pose = torch.where(m, reset_pose, pose)
+            goal = torch.where(m, reset_goal, goal)
+            dist = torch.where(reset_mask, self._reset_dist(pose, goal), dist)
+            step_ctr = torch.where(reset_mask, 0, step_ctr)
+            # Speed obs: the applied (v, w); fresh resets start at rest.
+            speed = torch.where(m, 0.0, speed)
+            ep_return = torch.where(reset_mask, 0.0, ep_return)
 
         scan = self.scan_obs(pose)[:, :, None, :]
-        shifted = torch.cat([state.scan_hist[:, :, 1:], scan], dim=2)
-        scan_hist = torch.where(terminal[..., None, None], scan, shifted)
+        scan_hist = torch.cat([state.scan_hist[:, :, 1:], scan], dim=2)
+        if reset_mask is not None:
+            scan_hist = torch.where(reset_mask[..., None, None], scan,
+                                    scan_hist)
 
         new_state = EnvState(
             pose=pose, speed=speed, goal=goal, dist=dist,
-            step=torch.where(terminal, 0, steps).to(torch.int32),
-            scan_hist=scan_hist,
-            ep_return=torch.where(terminal, 0.0, ep_return_now))
-        info = StepInfo(result=result, valid=torch.ones_like(terminal),
+            step=step_ctr.to(torch.int32), dead=dead_next,
+            scan_hist=scan_hist, ep_return=ep_return)
+        done = state.dead | terminal
+        info = StepInfo(result=result, valid=live,
                         ep_return=torch.where(terminal, ep_return_now, 0.0),
-                        reached=reached, crashed=crashed)
-        return new_state, self.obs(new_state), reward, terminal, info
+                        reached=reached & live, crashed=crashed & live)
+        return new_state, self.obs(new_state), reward, done, info
+
+    def teleport(self, state: EnvState, pose: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> EnvState:
+        """Set robot poses directly, the reference's ``control_pose``
+        (stage_world1.py:237-249).  pose (A, N, 3); mask an optional (A, N)
+        bool selecting robots.  The goal distance is re-derived; the lidar
+        history refreshes on the next step."""
+        if mask is not None:
+            pose = torch.where(mask[..., None], pose, state.pose)
+        dist = torch.linalg.vector_norm(state.goal - pose[..., :2], dim=-1)
+        return dataclasses.replace(state, pose=pose, dist=dist)

@@ -17,6 +17,27 @@ EPS = 1e-8
 BIG = 1e9
 
 
+def sparse_beam_index(raw: int, sparse: int) -> np.ndarray:
+    """The reference's left/right two-pointer lidar resample as a static
+    index table (``stage_world1.py:122-140``): the left half walks indices
+    ``int(k * raw / sparse)`` up from beam 0, the right half walks down from
+    beam ``raw - 1``, and the two meet in the middle.  For ``sparse == raw``
+    it is the identity."""
+    step = float(raw) / float(sparse)
+    # Accumulate as the reference loop does: its running float index drifts
+    # (6 * (512 / 24) accumulates to 127.999... -> 127, not 128), and the
+    # drift is part of the observed behavior.
+    left, index = [], 0.0
+    for _ in range(sparse // 2):
+        left.append(int(index))
+        index += step
+    right, index = [], raw - 1.0
+    for _ in range(sparse // 2):
+        right.append(int(index))
+        index -= step
+    return np.asarray(left + right[::-1], np.int32)
+
+
 def beam_directions_local(n_beams: int, fov: float) -> np.ndarray:
     """(B, 2) unit beam directions in the robot body frame; beam 0 points to
     angle -fov/2 (the robot's right for fov = pi)."""

@@ -1,10 +1,13 @@
-"""Stage-1 pose/goal samplers: fixed-shape, batched replacements for the
-reference's rejection loops (``stage_world1.py:251-274``).
+"""Pose/goal samplers: fixed-shape, batched replacements for the
+reference's rejection loops (``stage_world1.py:251-274``,
+``stage_world2.py:250-287``).
 
 Counterpart of ``rl_collision_avoidance_tpu/engine/sampling.py``.  Random
 numbers come from the ``torch.Generator`` the caller passes; they are not
 the JAX package's threefry bits, so tests compare distributions, or feed
-both sides the same draws.
+both sides the same draws: the corridor samplers' maps from uniforms to
+poses (:func:`corridor_poses_from`, :func:`corridor_goals_from`) take the
+uniforms as an argument.
 """
 from __future__ import annotations
 
@@ -54,3 +57,48 @@ def stage1_goals(pose_xy: torch.Tensor, spawn_radius: float, dmin: float,
     norm = torch.linalg.vector_norm(goal, dim=-1).clamp_min(1e-6)
     scale = (spawn_radius / norm).clamp_max(1.0)
     return goal * scale[..., None]
+
+
+def _corridor_xy(u_x: torch.Tensor, u_y: torch.Tensor) -> torch.Tensor:
+    """The stage-2 south-east corridor's piecewise map (stage_world2.py:
+    252-257): x ~ U(9, 19); u ~ U(0, 1), u <= 0.4 maps to y in [-5, -1],
+    else y in (-19, -13]."""
+    x = 9.0 + 10.0 * u_x
+    y = torch.where(u_y <= 0.4, -(u_y * 10.0 + 1.0), -(u_y * 10.0 + 9.0))
+    return torch.stack([x, y], dim=-1)
+
+
+def corridor_poses_from(u: torch.Tensor, cur_xy: torch.Tensor) -> torch.Tensor:
+    """u (3, ..., K) uniforms, cur_xy (..., 2) -> (..., 3) corridor poses,
+    the first of K candidates >= 7 m from the current position, heading
+    2 pi u[2, ..., 0] (stage_world2.py:250-268)."""
+    cand = _corridor_xy(u[0], u[1])                              # (..., K, 2)
+    d = torch.linalg.vector_norm(cand - cur_xy[..., None, :], dim=-1)
+    pos = _first_valid(cand, d >= 7.0)
+    theta = 2.0 * math.pi * u[2, ..., 0]
+    return torch.cat([pos, theta[..., None]], dim=-1)
+
+
+def corridor_goals_from(u: torch.Tensor, pose_xy: torch.Tensor) -> torch.Tensor:
+    """u (2, ..., K) uniforms, pose_xy (..., 2) -> (..., 2) corridor goals,
+    the first of K candidates >= 7 m from the (new) pose
+    (stage_world2.py:270-287)."""
+    cand = _corridor_xy(u[0], u[1])
+    d = torch.linalg.vector_norm(cand - pose_xy[..., None, :], dim=-1)
+    return _first_valid(cand, d >= 7.0)
+
+
+def corridor_poses(cur_xy: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """(..., 3) corridor poses >= 7 m from each current position."""
+    u = torch.rand((3, *cur_xy.shape[:-1], _K), generator=generator,
+                   device=cur_xy.device)
+    return corridor_poses_from(u, cur_xy)
+
+
+def corridor_goals(pose_xy: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """(..., 2) corridor goals >= 7 m from each pose."""
+    u = torch.rand((2, *pose_xy.shape[:-1], _K), generator=generator,
+                   device=pose_xy.device)
+    return corridor_goals_from(u, pose_xy)

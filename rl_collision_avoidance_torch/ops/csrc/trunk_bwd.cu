@@ -65,7 +65,7 @@ struct Layout {
   long long act, g1, partial, part, work;  // workspace offsets and size
 };
 
-Layout layout(int batch, int frames, int beams, int per_block, int fc1_splits,
+Layout layout(int batch, int frames, int beams, int conv_blocks, int fc1_splits,
               int dwf_splits) {
   Layout s;
   s.g = trunk::conv_geom(frames, beams);
@@ -75,7 +75,7 @@ Layout layout(int batch, int frames, int beams, int per_block, int fc1_splits,
   s.off_wf = s.psize;
   s.off_bf = s.off_wf + kH * s.g.nflat;
   s.total = s.off_bf + kH;
-  s.blocks = ceil_div(batch, per_block);
+  s.blocks = conv_blocks;
   s.nchunk = 8 / frames;
   s.gs = s.g.l2 + 4;
   s.act = 0;
@@ -114,12 +114,13 @@ __host__ __device__ inline BwdSmem bwd_smem(const Layout& s) {
   return m;
 }
 
-// Pass 5: per block of per_block samples and trunk, the sums over those
-// samples of dW1, db1, dW2 and db2, into partial[t][block][0 : psize].
+// Pass 5: per conv block and trunk, the sums over the block's samples
+// (trunk::block_samples) of dW1, db1, dW2 and db2, into
+// partial[t][block][0 : psize].
 __global__ void __launch_bounds__(kConvThreads, 2)
     conv_bwd_kernel(const float* __restrict__ x, Trunk act_w, Trunk crt_w,
                     const float* __restrict__ g2, float* __restrict__ partial,
-                    Layout s, int batch, int per_block) {
+                    Layout s, int batch) {
   extern __shared__ __align__(16) float sh[];
   const ConvGeom& g = s.g;
   const BwdSmem sm = bwd_smem(s);
@@ -162,8 +163,8 @@ __global__ void __launch_bounds__(kConvThreads, 2)
 #pragma unroll
   for (int t = 0; t < 5; ++t) acc1[t] = 0.0f;
 
-  const int b_begin = blockIdx.x * per_block;
-  const int b_end = min(batch, b_begin + per_block);
+  int b_begin, b_end;
+  trunk::block_samples(batch, s.blocks, blockIdx.x, &b_begin, &b_end);
   for (int b = b_begin; b < b_end; ++b) {
     const float* gb = g2 + (blockIdx.y * static_cast<size_t>(batch) + b) * g.nflat;
     for (int i = tid; i < g.nflat / 4; i += kConvThreads) {
@@ -349,10 +350,10 @@ __global__ void __launch_bounds__(kReduceThreads)
 
 // Floats of workspace that trunk_bwd_launch needs for this batch and plan.
 extern "C" long long trunk_bwd_workspace_floats(int batch, int frames,
-                                                int beams, int conv_per_block,
+                                                int beams, int conv_blocks,
                                                 int fc1_splits,
                                                 int dwf_splits) {
-  return layout(batch, frames, beams, conv_per_block, fc1_splits, dwf_splits)
+  return layout(batch, frames, beams, conv_blocks, fc1_splits, dwf_splits)
       .work;
 }
 
@@ -360,20 +361,21 @@ extern "C" long long trunk_bwd_workspace_floats(int batch, int frames,
 // trunk, each in the order w1, b1, w2, b2, wf, bf of struct Trunk; g
 // (2, B, 256) feature cotangent; grads (2, total): per trunk the gradients of
 // w1, b1, w2, b2, wf, bf back to back, each in its weight's layout; work:
-// work_floats floats.  The plan: conv_per_block samples per conv block (the
-// forward's), fc1_splits ranges of fc1's K (the forward's), dwf_splits
-// sample ranges of dWf.  Returns cudaErrorInvalidValue for shapes the
+// work_floats floats.  The plan: conv_blocks conv blocks per trunk (the
+// forward's; trunk_conv.cuh, block_samples), fc1_splits ranges of fc1's K
+// (the forward's), dwf_splits sample ranges of dWf.  Returns cudaErrorInvalidValue for shapes the
 // kernels do not take, a plan that leaves a range empty, or too little
 // workspace.
 extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
                                 const void* g, void* grads, void* work,
                                 long long work_floats, int batch, int frames,
-                                int beams, int conv_per_block, int fc1_splits,
+                                int beams, int conv_blocks, int fc1_splits,
                                 int dwf_splits, int device, void* stream) {
   if (!trunk::conv_shapes_ok(frames, beams) || batch < 1 ||
-      conv_per_block < 1 || fc1_splits < 1 || dwf_splits < 1)
+      conv_blocks < 1 || conv_blocks > ceil_div(batch, trunk::kFwdGroup) ||
+      fc1_splits < 1 || dwf_splits < 1)
     return cudaErrorInvalidValue;
-  const Layout s = layout(batch, frames, beams, conv_per_block, fc1_splits,
+  const Layout s = layout(batch, frames, beams, conv_blocks, fc1_splits,
                           dwf_splits);
   if (work_floats < s.work) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -396,7 +398,7 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
 
   // 1. the flat conv features
   err = trunk::launch_conv_fwd(xs, tr, act, batch, frames, beams,
-                               conv_per_block, st);
+                               conv_blocks, st);
   if (err != cudaSuccess) return err;
 
   // 2. g1 = g [act Wf^T + bf > 0]: M = B, N = 256, K = nflat
@@ -450,7 +452,7 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   conv_bwd_kernel<<<dim3(s.blocks, 2), kConvThreads, smem, st>>>(
-      xs, tr[0], tr[1], act, partial, s, batch, conv_per_block);
+      xs, tr[0], tr[1], act, partial, s, batch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 6. the batch sums of the small gradients and of bf

@@ -222,14 +222,25 @@ inline size_t conv_fwd_smem_bytes(const ConvGeom& g) {
           static_cast<size_t>(kFwdGroup) * (x_floats(g) + y1_floats(g)));
 }
 
+// The samples of conv block i of `blocks`: groups [i G / blocks, (i + 1) G /
+// blocks) of the G = ceil(batch / kFwdGroup) groups of kFwdGroup samples, so
+// block ranges differ by at most one group and none is empty while
+// blocks <= G.  Both conv passes cut the batch this way.
+__device__ inline void block_samples(int batch, int blocks, int i, int* lo,
+                                     int* hi) {
+  const long long groups = ceil_div(batch, kFwdGroup);
+  *lo = static_cast<int>(i * groups / blocks) * kFwdGroup;
+  *hi = min(batch, static_cast<int>((i + 1) * groups / blocks) * kFwdGroup);
+}
+
 // The conv pass: flat[t][b] = the channel-major conv2 features of sample b
-// through trunk t = blockIdx.y.  Block i takes samples [i * per_block,
-// (i + 1) * per_block), kGroup at a time, with three barriers per group.
+// through trunk t = blockIdx.y.  Block i takes the samples block_samples
+// gives it, kGroup at a time, with three barriers per group.
 template <int kGroup>
 __global__ void __launch_bounds__(kConvThreads, 2)
     conv_fwd_kernel(const float* __restrict__ x, Trunk act, Trunk crt,
                     float* __restrict__ flat, int batch, int frames,
-                    int beams, int per_block) {
+                    int beams) {
   extern __shared__ __align__(16) float sh[];
   const ConvGeom g = conv_geom(frames, beams);
   const Trunk p = blockIdx.y == 0 ? act : crt;
@@ -246,8 +257,8 @@ __global__ void __launch_bounds__(kConvThreads, 2)
   zero_pads(xsm, y1, g, kGroup, tid);
 
   const int nlg = g.half / 4, nmg = g.l2 / 4;
-  const int b_begin = blockIdx.x * per_block;
-  const int b_end = min(batch, b_begin + per_block);
+  int b_begin, b_end;
+  block_samples(batch, gridDim.x, blockIdx.x, &b_begin, &b_end);
   for (int b0 = b_begin; b0 < b_end; b0 += kGroup) {
     const int nb = min(kGroup, b_end - b0);
     __syncthreads();  // the previous group's conv2 has read y1
@@ -275,7 +286,7 @@ __global__ void __launch_bounds__(kConvThreads, 2)
 // Enqueue the conv pass over both trunks.
 inline cudaError_t launch_conv_fwd(const float* x, const Trunk* tr,
                                    float* flat, int batch, int frames,
-                                   int beams, int per_block,
+                                   int beams, int blocks,
                                    cudaStream_t stream) {
   const ConvGeom g = conv_geom(frames, beams);
   const size_t smem = conv_fwd_smem_bytes(g);
@@ -283,9 +294,9 @@ inline cudaError_t launch_conv_fwd(const float* x, const Trunk* tr,
       conv_fwd_kernel<kFwdGroup>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(ceil_div(batch, per_block), 2);
+  const dim3 grid(blocks, 2);
   conv_fwd_kernel<kFwdGroup><<<grid, kConvThreads, smem, stream>>>(
-      x, tr[0], tr[1], flat, batch, frames, beams, per_block);
+      x, tr[0], tr[1], flat, batch, frames, beams);
   return cudaGetLastError();
 }
 

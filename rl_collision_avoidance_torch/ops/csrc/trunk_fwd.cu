@@ -55,19 +55,20 @@ extern "C" long long trunk_fwd_workspace_floats(int batch, int frames,
 
 // x (B, F, NB) scans; w: the 12 weight pointers, actor trunk then critic
 // trunk, each in the order w1, b1, w2, b2, wf, bf of struct Trunk; out
-// (2, B, 256); work: work_floats floats.  The plan: conv_per_block samples
-// per conv block, fc1_splits ranges of fc1's K.  Returns
+// (2, B, 256); work: work_floats floats.  The plan: conv_blocks conv blocks
+// per trunk (trunk_conv.cuh, block_samples), fc1_splits ranges of fc1's K.  Returns
 // cudaErrorInvalidValue for shapes the kernels do not take (see
 // trunk_conv.cuh), a plan that leaves a range empty, or too little
 // workspace.
 extern "C" int trunk_fwd_launch(const void* x, const void* const* w,
                                 void* out, void* work, long long work_floats,
                                 int batch, int frames, int beams,
-                                int conv_per_block, int fc1_splits,
+                                int conv_blocks, int fc1_splits,
                                 int device, void* stream) {
   const trunk::ConvGeom g = trunk::conv_geom(frames, beams);
   if (!trunk::conv_shapes_ok(frames, beams) || batch < 1 ||
-      conv_per_block < 1 || fc1_splits < 1 ||
+      conv_blocks < 1 || conv_blocks > trunk::ceil_div(batch, trunk::kFwdGroup) ||
+      fc1_splits < 1 ||
       work_floats < fwd_workspace_floats(batch, g, fc1_splits))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -78,7 +79,7 @@ extern "C" int trunk_fwd_launch(const void* x, const void* const* w,
                        {f[6], f[7], f[8], f[9], f[10], f[11]}};
   float* flat = static_cast<float*>(work);  // (2, B, nflat)
   err = trunk::launch_conv_fwd(static_cast<const float*>(x), tr, flat, batch,
-                               frames, beams, conv_per_block, st);
+                               frames, beams, conv_blocks, st);
   if (err != cudaSuccess) return err;
 
   trunk::Gemm p{};

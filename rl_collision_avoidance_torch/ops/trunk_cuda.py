@@ -11,8 +11,8 @@ backward: the twelve weight gradients from the feature cotangent, launched
 from ``csrc/trunk_bwd.cu`` (which replaces ``trunk_pallas.py::_bwd_kernel``)
 or, on CPU tensors, :func:`twin_trunks_grads_plain`.  Both kernels are a
 conv pass and products on one shared core; :func:`plan` says how they cut a
-batch (samples per conv block, split-K ranges) and sizes their workspace,
-which the wrappers allocate.  There is no fallback between kernel and plain
+batch (conv blocks, split-K ranges) and sizes their workspace, which the
+wrappers allocate.  There is no fallback between kernel and plain
 version.  Where autograd needs the weights'
 gradients, :func:`twin_trunks` goes through :class:`TwinTrunks`, which pairs
 the two; like the JAX package's custom_vjp, it gives no gradient to the
@@ -111,6 +111,17 @@ def ranges(n: int, chunk: int) -> list[tuple[int, int]]:
     return [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
 
 
+def conv_ranges(batch: int, blocks: int) -> list[tuple[int, int]]:
+    """The samples of each of ``blocks`` conv blocks, as the kernels cut
+    them (``csrc/trunk_conv.cuh::block_samples``): block i takes groups
+    [i G / blocks, (i + 1) G / blocks) of the G = ceil(batch / FWD_GROUP)
+    groups of FWD_GROUP samples, so ranges differ by at most one group."""
+    groups = ceil_div(batch, FWD_GROUP)
+    return [(i * groups // blocks * FWD_GROUP,
+             min(batch, (i + 1) * groups // blocks * FWD_GROUP))
+            for i in range(blocks)]
+
+
 def _fill(blocks: int, slots: int) -> float:
     """Share of the block slots that ``blocks`` keep busy over its waves."""
     return blocks / (ceil_div(blocks, slots) * slots)
@@ -129,23 +140,19 @@ def k_splits(tiles: int, ktiles: int, slots: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How the trunk kernels cut a batch of ``batch`` samples of (frames,
-    beams) scans: samples per conv block, split-K ranges of fc1 (forward and
+    beams) scans: conv blocks per trunk, split-K ranges of fc1 (forward and
     its recompute in the backward) and of dWf, and the workspace each kernel
     needs, in floats."""
     batch: int
     frames: int
     beams: int
-    conv_per_block: int
+    conv_blocks: int
     fc1_splits: int
     dwf_splits: int
 
     @property
     def nflat(self) -> int:
         return _weight_shapes(self.frames, self.beams)["wf"][1]
-
-    @property
-    def conv_blocks(self) -> int:
-        return ceil_div(self.batch, self.conv_per_block)
 
     @property
     def fc1_kchunk(self) -> int:
@@ -196,17 +203,18 @@ class Plan:
 
 def plan(batch: int, frames: int, beams: int, sms: int = H100_SMS) -> Plan:
     """The launch plan for ``batch`` samples on a card with ``sms`` SMs: the
-    conv passes give each trunk ~``sms`` blocks (two trunks, two blocks an
-    SM: one wave), and the products split K where their tiles alone would
-    fill the card's block slots poorly."""
-    groups_per_block, _ = split(ceil_div(batch, FWD_GROUP), sms)
+    conv passes give each trunk ``sms`` blocks, or one a sample group where
+    there are fewer groups (two trunks, two blocks an SM: one wave), and
+    the products split K where their tiles alone would fill the card's
+    block slots poorly."""
     nflat = _weight_shapes(frames, beams)["wf"][1]
     slots = BLOCKS_PER_SM * sms
     fc1 = k_splits(2 * ceil_div(batch, GEMM_TILE) * ceil_div(256, GEMM_TILE),
                    ceil_div(nflat, GEMM_K_TILE), slots)
     dwf = k_splits(2 * ceil_div(256, GEMM_TILE) * ceil_div(nflat, GEMM_TILE),
                    ceil_div(batch, GEMM_K_TILE), slots)
-    return Plan(batch, frames, beams, FWD_GROUP * groups_per_block, fc1, dwf)
+    return Plan(batch, frames, beams, min(ceil_div(batch, FWD_GROUP), sms),
+                fc1, dwf)
 
 
 def plan_for(scans: torch.Tensor) -> Plan:
@@ -242,7 +250,7 @@ def _launchers():
 def workspace_counters():
     """The kernels' own workspace counts, ``trunk_fwd_workspace_floats(B,
     F, NB, fc1_splits)`` and ``trunk_bwd_workspace_floats(B, F, NB,
-    conv_per_block, fc1_splits, dwf_splits)``: what the launchers hold the
+    conv_blocks, fc1_splits, dwf_splits)``: what the launchers hold the
     wrapper's workspace to."""
     lib = build.library()
     i = ctypes.c_int
@@ -311,7 +319,7 @@ def _kernel_forward(scans, weights) -> torch.Tensor:
     stream = torch.cuda.current_stream(scans.device).cuda_stream
     status = _launchers()[0](scans.data_ptr(), ptrs, out.data_ptr(),
                              work.data_ptr(), work.numel(), b, frames, beams,
-                             pl.conv_per_block, pl.fc1_splits, index, stream)
+                             pl.conv_blocks, pl.fc1_splits, index, stream)
     build.check(status, "twin_trunks")
     global launches
     launches += 1
@@ -388,7 +396,7 @@ def _kernel_grads(scans, weights, g) -> tuple[tuple, tuple]:
         status = _launchers()[1](
             scans.data_ptr(), ptrs, g.data_ptr(), grads.data_ptr(),
             work.data_ptr(), work.numel(), b, frames, beams,
-            pl.conv_per_block, pl.fc1_splits, pl.dwf_splits, index, stream)
+            pl.conv_blocks, pl.fc1_splits, pl.dwf_splits, index, stream)
         build.check(status, "twin_trunks_grads")
         global bwd_launches
         bwd_launches += 1

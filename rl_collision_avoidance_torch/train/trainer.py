@@ -1,10 +1,14 @@
 """The training loop: rollout, bootstrap, GAE and PPO, one update at a time.
 
-Counterpart of ``rl_collision_avoidance_tpu/train/trainer.py`` for stage 1
-on one device.  One :meth:`Trainer.train_step` is one reference "update"
+Counterpart of ``rl_collision_avoidance_tpu/train/trainer.py`` on one
+device, for the curriculum's three presets (stage 1, stage 2, the circle
+fine-tune).  One :meth:`Trainer.train_step` is one reference "update"
 (``ppo_stage1.py:39-130``): ``horizon`` acting steps of every robot of every
 arena, the bootstrap value at the horizon, GAE over (T, E), advantage
-normalization, an arena-major flatten and the PPO epochs.  On the CUDA card
+normalization, an arena-major flatten and the PPO epochs.  A dead robot's
+steps (stage 2's finished robots waiting for their group) stay in the
+rollout as in the JAX package: ``done`` cuts GAE there, they count in the
+advantage normalization, and they train with weight 0.  On the CUDA card
 the policy runs through the trunk forward kernel in the rollout and through
 the forward and backward kernels in the update; the env step runs the lidar
 kernel.  Phases are marked with ``torch.profiler.record_function`` so that
@@ -53,6 +57,45 @@ class TrainConfig:
                                        learning_rate=5e-5))
         return TrainConfig(**kw)
 
+    @staticmethod
+    def stage2(**kw) -> "TrainConfig":
+        """Stage-2 hyperparameters (ppo_stage2.py:22-35); the minibatch
+        scales with the arena count as in :meth:`stage1`."""
+        a = kw.get("n_arenas", 1)
+        kw.setdefault("world", "stage2")
+        kw.setdefault("ppo", PPOConfig(batch_size=512 * a, epochs=4,
+                                       clip_value=0.1, coeff_entropy=5e-4,
+                                       learning_rate=5e-5))
+        return TrainConfig(**kw)
+
+    @staticmethod
+    def circle_ft(**kw) -> "TrainConfig":
+        """Stage 3: fine-tune on the jittered 50-robot circle swap (world
+        ``circle_train``), stage-2 PPO settings plus a logstd floor of -2
+        (the JAX package's preset: its stage-2 run's entropy collapses, so
+        the floor keeps exploration for the new task).  128 x 50 x A
+        samples an update in minibatches of 640 A: 10 minibatches x 4
+        epochs."""
+        a = kw.get("n_arenas", 1)
+        kw.setdefault("world", "circle_train")
+        kw.setdefault("ppo", PPOConfig(batch_size=640 * a, epochs=4,
+                                       clip_value=0.1, coeff_entropy=5e-4,
+                                       learning_rate=5e-5, logstd_min=-2.0))
+        return TrainConfig(**kw)
+
+    @staticmethod
+    def for_world(world: str, **kw) -> "TrainConfig":
+        """The preset that trains on ``world`` (stage 1's for any other
+        world), with ``world`` set."""
+        name = next((n for n, f in PRESETS.items() if f().world == world),
+                    "stage1")
+        return PRESETS[name](world=world, **kw)
+
+
+#: The training presets by stage name, as the CLI's commands run them.
+PRESETS = {"stage1": TrainConfig.stage1, "stage2": TrainConfig.stage2,
+           "circle_ft": TrainConfig.circle_ft}
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -75,11 +118,10 @@ class Trainer:
         self.device = resolve_device(device)
         self.env = Env(self.spec, device=self.device, seed=cfg.seed)
 
-    def init_state(self, seed: int | None = None) -> TrainState:
-        """Fresh arenas, a policy with PyTorch's default init from a
-        generator seeded by ``seed`` (``cfg.seed``), and Adam with optax's
-        ``adam`` defaults (``trainer.py:142``)."""
-        seed = self.cfg.seed if seed is None else seed
+    def _policy_and_optimizer(self, seed: int):
+        """A policy with PyTorch's default init from a generator seeded by
+        ``seed``, and Adam with optax's ``adam`` defaults
+        (``trainer.py:142``)."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             policy = CNNPolicy(self.spec.laser_frames, self.spec.n_beams)
@@ -87,12 +129,55 @@ class Trainer:
         optimizer = torch.optim.Adam(policy.parameters(),
                                      lr=self.cfg.ppo.learning_rate,
                                      betas=(0.9, 0.999), eps=1e-8)
+        return policy, optimizer
+
+    def init_state(self, seed: int | None = None) -> TrainState:
+        """Fresh arenas, policy and Adam, all drawn from ``seed``
+        (``cfg.seed``)."""
+        seed = self.cfg.seed if seed is None else seed
+        policy, optimizer = self._policy_and_optimizer(seed)
         self.env.generator.manual_seed(seed)
         env_state, _ = self.env.reset(self.cfg.n_arenas)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed + 1)
         return TrainState(policy=policy, optimizer=optimizer,
                           env_state=env_state, generator=generator, update=0)
+
+    def state_dict(self, state: TrainState) -> dict:
+        """Everything an exact resume needs, for ``utils/checkpoint.py``:
+        the policy and Adam state dicts, every ``EnvState`` tensor, the
+        env's and the trainer's generator states (as bytes, which stay on
+        the host whatever device the dict is restored onto) and the update
+        counter."""
+        env_state = state.env_state
+        return {"policy": state.policy.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "env_state": {f.name: getattr(env_state, f.name)
+                              for f in dataclasses.fields(env_state)},
+                "env_generator": _bytes(self.env.generator),
+                "generator": _bytes(state.generator),
+                "update": state.update}
+
+    def load_state_dict(self, saved: dict) -> TrainState:
+        """The :class:`TrainState` of :meth:`state_dict`'s ``saved`` on this
+        trainer's device; the env's generator takes its saved state."""
+        policy, optimizer = self._policy_and_optimizer(self.cfg.seed)
+        policy.load_state_dict(saved["policy"])
+        # Adam keeps its step counts on the host (it is not capturable);
+        # a restore onto the card has moved them there.
+        opt = saved["optimizer"]
+        opt = {**opt, "state": {i: {k: v.cpu() if k == "step" else v
+                                    for k, v in st.items()}
+                                for i, st in opt["state"].items()}}
+        optimizer.load_state_dict(opt)
+        env_state = EnvState(**{k: v.to(self.device)
+                                for k, v in saved["env_state"].items()})
+        self.env.generator.set_state(_state(saved["env_generator"]))
+        generator = torch.Generator(device=self.device)
+        generator.set_state(_state(saved["generator"]))
+        return TrainState(policy=policy, optimizer=optimizer,
+                          env_state=env_state, generator=generator,
+                          update=int(saved["update"]))
 
     # ------------------------------------------------------------------
 
@@ -188,10 +273,16 @@ class Trainer:
         return new_state, metrics
 
     def train(self, state: TrainState | None = None,
-              updates: int | None = None, log_fn=None) -> TrainState:
+              updates: int | None = None, log_fn=None,
+              checkpoint_manager=None,
+              checkpoint_every: int = 20) -> TrainState:
         """Host loop: ``updates`` (``cfg.max_updates``) updates, each logged
         through ``log_fn`` with ``update``, ``steps_per_s`` and
-        ``steps_per_s_ema`` added."""
+        ``steps_per_s_ema`` added.  With a ``checkpoint_manager``
+        (``utils/checkpoint.py``), every ``checkpoint_every``-th update
+        (the reference's cadence, ``ppo_stage1.py:122-126``) saves the full
+        state, and keeps it as the best when its goal share of ended
+        episodes is the highest so far."""
         if state is None:
             state = self.init_state()
         n = updates if updates is not None else self.cfg.max_updates
@@ -204,4 +295,19 @@ class Trainer:
             metrics["steps_per_s_ema"] = timer.ema
             if log_fn is not None:
                 log_fn(metrics)
+            if (checkpoint_manager is not None
+                    and state.update % checkpoint_every == 0):
+                saved = self.state_dict(state)
+                checkpoint_manager.save(state.update, saved)
+                checkpoint_manager.save_best(
+                    state.update, saved,
+                    metrics["reached"] / max(metrics["episodes"], 1.0))
         return state
+
+
+def _bytes(generator: torch.Generator) -> bytes:
+    return generator.get_state().numpy().tobytes()
+
+
+def _state(saved: bytes) -> torch.Tensor:
+    return torch.frombuffer(bytearray(saved), dtype=torch.uint8)

@@ -1,3 +1,6 @@
-from .spec import ResetMode, WorldSpec, get_world, mini, stage1
+from .spec import (ResetMode, WorldSpec, circle, circle_tables, circle_train,
+                   get_world, mini, stage1, stage2, stage2_tables)
 
-__all__ = ["ResetMode", "WorldSpec", "get_world", "mini", "stage1"]
+__all__ = ["ResetMode", "WorldSpec", "circle", "circle_tables",
+           "circle_train", "get_world", "mini", "stage1", "stage2",
+           "stage2_tables"]

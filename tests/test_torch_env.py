@@ -1,7 +1,7 @@
 """The port's stage-1 env (engine/env.py, plain path on the CPU) against the
 JAX package's Env, step for step with the same state, actions and reset
-draws, plus the behaviour cases of tests/test_env.py and the samplers'
-distributions."""
+draws, plus the behaviour cases of tests/test_env.py, the samplers'
+distributions and the obs_beams resample."""
 import dataclasses
 
 import jax
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from rl_collision_avoidance_tpu.engine import lidar as jlidar
 from rl_collision_avoidance_tpu.engine import sampling as jsampling
 from rl_collision_avoidance_tpu.engine.env import Env as JEnv
 from rl_collision_avoidance_tpu.worlds import mini as jmini
@@ -18,35 +19,13 @@ from rl_collision_avoidance_tpu.worlds import stage1 as jstage1
 from rl_collision_avoidance_torch.engine import sampling
 from rl_collision_avoidance_torch.engine.env import (RESULT_CRASH, RESULT_GOAL,
                                                      RESULT_TIMEOUT, Env,
-                                                     EnvState, local_goal)
+                                                     local_goal)
+from rl_collision_avoidance_torch.engine.lidar import sparse_beam_index
 from rl_collision_avoidance_torch.worlds import mini, stage1
-from torch_parity import ATOL, assert_frame_matches_jax
+from torch_parity import (ATOL, check_scans, jax_reset_draw,
+                          to_torch_state)
 
 T = torch.from_numpy
-FIELDS = ("pose", "speed", "goal", "dist", "step", "scan_hist", "ep_return")
-
-
-def _to_torch(jstate) -> EnvState:
-    return EnvState(**{f: torch.tensor(np.asarray(getattr(jstate, f)))
-                       for f in FIELDS})
-
-
-def _jax_reset_draw(jenv, keys, cur_pose):
-    """The (pose, goal) sample JAX's Env draws from ``keys`` (A,)."""
-    k = jax.vmap(lambda key: jax.random.split(key, 2))(keys)[:, 1]
-    pose, goal = jenv._sample_pose_goal(k, cur_pose)
-    return torch.tensor(np.asarray(pose)), torch.tensor(np.asarray(goal))
-
-
-def _check_scans(env, mine, ref, pose, prev=None, reset=None):
-    """The newest frame is held to the lidar parity rule of torch_parity;
-    the older frames are the previous history shifted by one (``prev``), or
-    the newest frame again for robots that were reset (all at ``reset``)."""
-    assert_frame_matches_jax(env, mine[..., -1, :], ref[..., -1, :], pose)
-    older = np.repeat(mine[..., -1:, :], mine.shape[-2] - 1, axis=-2)
-    if prev is not None:
-        older = np.where(reset[..., None, None], older, prev[..., 1:, :])
-    np.testing.assert_array_equal(mine[..., :-1, :], older)
 
 
 def _force_events(spec, jstate, arena=0):
@@ -73,14 +52,14 @@ def test_reset_and_steps_match_jax(world, lidar_mode):
     env = Env(spec, device="cpu")
     keys = jax.random.split(jax.random.PRNGKey(7), arenas)
     jstate, jobs = jax.jit(jenv.reset)(keys)
-    pose0, goal0 = _jax_reset_draw(jenv, keys, jnp.zeros((arenas,
+    pose0, goal0 = jax_reset_draw(jenv, keys, jnp.zeros((arenas,
                                                           spec.n_robots, 3)))
     state, obs = env.reset(arenas, pose0, goal0)
-    for f in FIELDS[:-2]:
+    for f in ("pose", "speed", "goal", "dist", "step"):
         np.testing.assert_allclose(getattr(state, f).numpy(),
                                    np.asarray(getattr(jstate, f)), atol=ATOL,
                                    err_msg=f)
-    _check_scans(env, obs.scans.numpy(), np.asarray(jobs.scans),
+    check_scans(env, obs.scans.numpy(), np.asarray(jobs.scans),
                  pose0.numpy())
     np.testing.assert_allclose(obs.goal.numpy(), np.asarray(jobs.goal),
                                atol=ATOL)
@@ -95,8 +74,8 @@ def test_reset_and_steps_match_jax(world, lidar_mode):
                           (arenas, spec.n_robots, 2)).astype(np.float32)
         if i == 0:
             act[0, :2] = [1.0, 0.0]
-        rp, rg = _jax_reset_draw(jenv, jstate.key, jstate.pose)
-        state = _to_torch(jstate)
+        rp, rg = jax_reset_draw(jenv, jstate.key, jstate.pose)
+        state = to_torch_state(jstate)
         prev = state.scan_hist.numpy()
         jstate, jobs, jr, jd, jinfo = jstep(jstate, jnp.asarray(act))
         state, obs, r, d, info = env.step(state, T(act), rp, rg)
@@ -114,7 +93,7 @@ def test_reset_and_steps_match_jax(world, lidar_mode):
                                    np.asarray(jinfo.ep_return), atol=ATOL)
         np.testing.assert_allclose(obs.goal.numpy(), np.asarray(jobs.goal),
                                    atol=ATOL)
-        _check_scans(env, obs.scans.numpy(), np.asarray(jobs.scans),
+        check_scans(env, obs.scans.numpy(), np.asarray(jobs.scans),
                      state.pose.numpy(), prev, d.numpy())
         events += np.bincount(info.result.numpy().ravel(), minlength=4)
     assert events[1:].all(), events  # goal, crash and timeout all happened
@@ -299,3 +278,33 @@ def test_env_draws_come_from_its_generator():
     assert torch.equal(sa.pose, sb.pose) and torch.equal(sa.goal, sb.goal)
     sc, _ = Env(mini(), device="cpu", seed=6).reset(3)
     assert not torch.equal(sa.pose, sc.pose)
+
+
+@pytest.mark.parametrize("raw,sparse", [(512, 512), (512, 24), (512, 90),
+                                        (64, 16)])
+def test_sparse_beam_index_matches_jax(raw, sparse):
+    """The reference's left/right two-pointer resample, drift included."""
+    mine = sparse_beam_index(raw, sparse)
+    assert mine.dtype == np.int32
+    np.testing.assert_array_equal(mine, jlidar.sparse_beam_index(raw, sparse))
+
+
+def test_obs_beams_resample():
+    """With obs_beams set, every frame of the history is the full frame at
+    the resample's beams, after reset and after a step with resets."""
+    full = Env(mini(), device="cpu", seed=2)
+    sparse = Env(dataclasses.replace(mini(), obs_beams=16), device="cpu")
+    idx = torch.from_numpy(jlidar.sparse_beam_index(64, 16)).long()
+    pose, goal = full.sample_pose_goal(2)
+    sf, of = full.reset(2, pose, goal)
+    ss, osp = sparse.reset(2, pose, goal)
+    assert osp.scans.shape == (2, 4, 3, 16)
+    assert torch.equal(osp.scans, of.scans[..., idx])
+    state = dataclasses.replace(sf, step=torch.full_like(sf.step, 150))
+    rp, rg = full.sample_pose_goal(2)
+    act = torch.full((2, 4, 2), 0.5)
+    _, of, _, done, _ = full.step(state, act, rp, rg)
+    _, osp, _, _, _ = sparse.step(dataclasses.replace(
+        ss, step=state.step), act, rp, rg)
+    assert done.all()
+    assert torch.equal(osp.scans, of.scans[..., idx])

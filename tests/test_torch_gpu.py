@@ -13,7 +13,8 @@ from rl_collision_avoidance_torch.engine.env import Env
 from rl_collision_avoidance_torch.models import CNNPolicy
 from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
-from rl_collision_avoidance_torch.worlds import mini, stage1
+from rl_collision_avoidance_torch.worlds import (circle, circle_train, mini,
+                                                 stage1, stage2)
 
 pytestmark = pytest.mark.gpu
 
@@ -34,7 +35,10 @@ def _lidar_args(env):
             env.spec.robot_radius, env.spec.max_range)
 
 
-@pytest.mark.parametrize("make_spec,arenas", [(stage1, 16), (mini, 5)])
+@pytest.mark.parametrize("make_spec,arenas", [(stage1, 16), (mini, 5),
+                                              (stage2, 16), (circle, 1),
+                                              (circle, 32),
+                                              (circle_train, 16)])
 def test_lidar_kernel_matches_plain(cuda, make_spec, arenas):
     env = Env(make_spec(), device=cuda, seed=3)
     pose, _ = env.sample_pose_goal(arenas)
@@ -47,12 +51,15 @@ def test_lidar_kernel_matches_plain(cuda, make_spec, arenas):
     torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("n", [24, 50])
-def test_lidar_kernel_on_adversarial_arena(cuda, n):
+@pytest.mark.parametrize("make_spec,n", [(stage1, 24), (stage1, 50),
+                                         (stage2, 44), (circle, 50)])
+def test_lidar_kernel_on_adversarial_arena(cuda, make_spec, n):
     """The culling rules' edge cases (lidar_cuda.adversarial_poses) on the
-    stage-1 walls, with 24 robots and with 50 (more than a warp): within
-    LIDAR_ATOL of the plain version, and bit-equal over two launches."""
-    env = Env(stage1(), device=cuda)
+    stage-1 walls with 24 robots and with 50 (more than a warp), on the
+    stage-2 map (K = 72 candidate slots) with 44 and in the 60 m rink with
+    50: within LIDAR_ATOL of the plain version, and bit-equal over two
+    launches."""
+    env = Env(make_spec(), device=cuda)
     s = env.spec
     base = torch.from_numpy(lidar_cuda.adversarial_poses(s, n,
                                                          seed=n)).to(cuda)
@@ -89,7 +96,8 @@ def test_lidar_kernel_rejects_bad_input(cuda):
                              *args[5:])
 
 
-@pytest.mark.parametrize("batch", [1, 37, 768, 1000, 3072])
+@pytest.mark.parametrize("batch", [1, 37, 50, 704, 768, 1000, 3072, 8192,
+                                   10240])
 def test_trunk_kernel_matches_plain(cuda, batch):
     torch.manual_seed(batch)
     policy = CNNPolicy().to(cuda)
@@ -115,13 +123,14 @@ def test_trunk_kernel_is_deterministic(cuda):
         assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("batch", [1, 37, 768, 3072, 4099, 32768])
+@pytest.mark.parametrize("batch", [1, 37, 50, 704, 768, 800, 1600, 3072,
+                                   4099, 8192, 10240, 32768])
 def test_trunk_workspace_plan_matches_the_kernels(cuda, batch):
     """The wrapper's workspace sizes equal the launchers' own counts."""
     fwd, bwd = trunk_cuda.workspace_counters()
     pl = trunk_cuda.plan_for(torch.empty(batch, 3, 512, device=cuda))
     assert fwd(batch, 3, 512, pl.fc1_splits) == pl.fwd_workspace
-    assert bwd(batch, 3, 512, pl.conv_per_block, pl.fc1_splits,
+    assert bwd(batch, 3, 512, pl.conv_blocks, pl.fc1_splits,
                pl.dwf_splits) == pl.bwd_workspace
 
 
@@ -174,7 +183,7 @@ def test_trunk_bwd_kernel_matches_plain(cuda, batch):
                                    msg=name)
 
 
-@pytest.mark.parametrize("batch", [37, 1000, 4099])
+@pytest.mark.parametrize("batch", [37, 50, 704, 1000, 4099, 8192, 10240])
 def test_trunk_bwd_kernel_within_rounding_limit(cuda, batch):
     """Against the plain version in float64 at batches ragged against the
     128-sample tiles, the split-K ranges and the conv blocks, held as
@@ -268,23 +277,28 @@ def test_policy_grads_through_kernels_match_plain_path(cuda):
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0, msg=name)
 
 
-def test_env_kernel_path_matches_plain_path(cuda):
+@pytest.mark.parametrize("make_spec", [stage1, stage2, circle, circle_train])
+def test_env_kernel_path_matches_plain_path(cuda, make_spec):
     """Five steps of the same state, actions and reset draws through the
-    kernel path and the plain path on the card."""
-    env = Env(stage1(), device=cuda, seed=0)
-    plain = Env(stage1(), device=cuda, use_kernels=False)
+    kernel path and the plain path on the card, in each world of the
+    curriculum (stage 2 and circle_train with their group resets, circle
+    with robots that finish and spin)."""
+    env = Env(make_spec(), device=cuda, seed=0)
+    plain = Env(make_spec(), device=cuda, use_kernels=False)
+    n = env.n_robots
     pose, goal = env.sample_pose_goal(8)
     state, obs = env.reset(8, pose, goal)
     pstate, pobs = plain.reset(8, pose, goal)
     torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL, rtol=0)
     g = torch.Generator(device=cuda).manual_seed(1)
     for _ in range(5):
-        act = torch.rand((8, 24, 2), generator=g, device=cuda) * 2 - 0.5
-        rp, rg = env.sample_pose_goal(8)
+        act = torch.rand((8, n, 2), generator=g, device=cuda) * 2 - 0.5
+        rp, rg = env.sample_pose_goal(8, state.pose)
         state, obs, r, d, _ = env.step(state, act, rp, rg)
         pstate, pobs, pr, pd, _ = plain.step(pstate, act, rp, rg)
         assert torch.equal(r, pr) and torch.equal(d, pd)
         assert torch.equal(state.pose, pstate.pose)
+        assert torch.equal(state.dead, pstate.dead)
         torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL,
                                    rtol=0)
 

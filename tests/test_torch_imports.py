@@ -1,5 +1,5 @@
 """What the port may import and load: no JAX, flax, PIL or JAX package, the
-stage-1 geometry as committed literals, and chip_smoke.py's refusals."""
+world geometry as committed literals, and chip_smoke.py's refusals."""
 import os
 import shutil
 import subprocess
@@ -24,12 +24,13 @@ import chip_smoke
 from rl_collision_avoidance_torch import bench, cli
 from rl_collision_avoidance_torch.algo import gae, ppo
 from rl_collision_avoidance_torch.engine.env import Env
+from rl_collision_avoidance_torch.eval import run_circle_eval
 from rl_collision_avoidance_torch.models import load_policy
 from rl_collision_avoidance_torch.ops import build, lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
-from rl_collision_avoidance_torch.utils import device, metrics, params
-from rl_collision_avoidance_torch.utils import profiling
-from rl_collision_avoidance_torch.worlds import stage1
+from rl_collision_avoidance_torch.utils import checkpoint, device, metrics
+from rl_collision_avoidance_torch.utils import params, profiling
+from rl_collision_avoidance_torch.worlds import circle, stage1, stage2
 
 env = Env(stage1(), device="cpu")
 policy = load_policy("results/stage1_params.npz", device="cpu")
@@ -42,6 +43,11 @@ trainer = Trainer(TrainConfig(world="mini", horizon=4,
                   device="cpu")
 _, m = trainer.train_step(trainer.init_state())
 assert all(v == v for v in m.values())
+env2 = Env(stage2(), device="cpu")
+state, obs = env2.reset(1)
+env2.step(state, torch.zeros(1, 44, 2))
+ft = load_policy("results/circle_ft_params.npz", device="cpu")
+assert run_circle_eval(ft, max_steps=2)["n_robots"] == 50
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r}))
 """
@@ -54,8 +60,8 @@ def _run(args, cwd=ROOT, env=None):
 
 def test_port_imports_nothing_of_jax():
     """Importing the port and chip_smoke.py, and running the stage-1 acting
-    slice and a training update on the CPU, loads none of JAX, flax, PIL or
-    the JAX package."""
+    slice, a training update, a stage-2 env step and two circle-eval steps
+    on the CPU, loads none of JAX, flax, PIL or the JAX package."""
     code = _SLICE.replace("{FORBIDDEN!r}", repr(set(FORBIDDEN)))
     proc = _run(["-c", code], env=NO_CARD)
     assert proc.returncode == 0, proc.stderr

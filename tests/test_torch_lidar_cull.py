@@ -13,7 +13,12 @@ minimum over the kept candidates only and hold it bit-equal to
 arena on the stage-1 walls, robots on wall lines looking along them, and
 ``adversarial_poses`` (overlapping discs, pairs 2r apart, tangent beams,
 discs at max_range + r and at the far cut, the field-of-view edges, robots
-beyond wall ends) with 24 and 50 robots."""
+beyond wall ends) with 24 and 50 robots; on the stage-2 map (K = 72) its
+reset poses (tables and corridor draws), robots on its wall lines and its
+adversarial arena; in the 60 m circle rink the 50-robot ring at step 0 and
+pushed out to 28.5 m by the walls, the ring drawn in to 4 m (discs 0.28 m
+apart), both with random headings as robots that finished spin in place,
+robots on the rink's wall lines and its adversarial arena."""
 import math
 
 import numpy as np
@@ -24,7 +29,7 @@ from rl_collision_avoidance_torch.engine.celltable import lookup_cells
 from rl_collision_avoidance_torch.engine.env import Env
 from rl_collision_avoidance_torch.engine.lidar import raycast_culled
 from rl_collision_avoidance_torch.ops import lidar_cuda
-from rl_collision_avoidance_torch.worlds import mini, stage1
+from rl_collision_avoidance_torch.worlds import circle, mini, stage1, stage2
 
 DEGENERATE = (1e7, 1e7, 0.0, 0.0)   # a padding slot of the cell table
 
@@ -70,6 +75,25 @@ def _case(name):
     if name == "mini":
         env = Env(mini(), device="cpu", seed=5)
         return env, env.sample_pose_goal(6)[0]
+    if name.startswith("stage2"):
+        env = Env(stage2(), device="cpu", seed=8)
+        if name == "stage2":
+            return env, env.sample_pose_goal(2)[0]
+        if name == "stage2_grazing":
+            return env, torch.cat([_grazing(env, 44, seed) for seed in
+                                   range(2)])
+    if name.startswith("circle"):
+        env = Env(circle(), device="cpu", seed=9)
+        ring = env.sample_pose_goal(1)[0]
+        spun = ring.clone()                 # finished robots spin in place
+        spun[..., 2] = 2 * math.pi * torch.rand(spun.shape[:2],
+                                                generator=env.generator)
+        if name == "circle_ring":           # at step 0, and out by the walls
+            return env, torch.cat([ring, spun * torch.tensor(
+                [28.5 / 25.0, 28.5 / 25.0, 1.0])])
+        if name == "circle_drawn_in":       # discs 0.28 m apart, and walls
+            return env, torch.cat([spun * torch.tensor([0.16, 0.16, 1.0]),
+                                   _grazing(env, 50, 0)])
     env = Env(stage1(), device="cpu", seed=7)
     if name == "stage1":
         return env, _stage1_arenas(env, 3)
@@ -81,13 +105,14 @@ def _case(name):
         return env, torch.from_numpy(pose)
     if name == "grazing":
         return env, torch.cat([_grazing(env, 40, seed) for seed in range(3)])
-    n = int(name.removeprefix("adversarial"))
+    n = int(name.split("adversarial")[1])
     return env, torch.from_numpy(lidar_cuda.adversarial_poses(env.spec, n,
                                                               seed=n))
 
 
 CASES = ("stage1", "mini", "walls50", "grazing", "adversarial24",
-         "adversarial50")
+         "adversarial50", "stage2", "stage2_grazing", "stage2_adversarial44",
+         "circle_ring", "circle_drawn_in", "circle_adversarial50")
 
 
 def _pairs(n):

@@ -10,15 +10,11 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from rl_collision_avoidance_tpu.algo import gae as jgae
-from rl_collision_avoidance_tpu.algo import ppo as jppo
 from rl_collision_avoidance_tpu.engine.env import Env as JEnv
 from rl_collision_avoidance_tpu.models import CNNPolicy as JCNNPolicy
-from rl_collision_avoidance_tpu.models import distributions as jdist
 from rl_collision_avoidance_tpu.utils.checkpoint import load_params_npz
 from rl_collision_avoidance_tpu.worlds import mini as jmini
 
@@ -30,131 +26,27 @@ from rl_collision_avoidance_torch.utils.params import (jax_params_to_torch,
                                                        load_jax_npz,
                                                        save_params_npz,
                                                        torch_to_jax_params)
-from torch_parity import assert_update_matches_jax
+from torch_parity import assert_one_update_matches_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 ARENAS, HORIZON, BATCH, EPOCHS = 3, 8, 32, 2   # 96 samples, 3 minibatches
-# Metrics: float32 sums over the rollout in another order than XLA's, and
-# lidar frames that differ by up to ~1e-5 between the packages at grazing
-# beams (torch_parity) feed the values and log-probs: 1e-4 relative.
-METRIC_RTOL = 1e-4
-
-
-def _draw(jenv, keys, pose):
-    """The reset draws JAX's Env makes from ``keys`` (as its step does)."""
-    k = jax.vmap(lambda key: jax.random.split(key, 2))(keys)[:, 1]
-    return tuple(torch.tensor(np.asarray(x))
-                 for x in jenv._sample_pose_goal(k, pose))
-
-
-def _jax_update(jenv, model, params, jstate, noise, key, cfg):
-    """One update as train/trainer.py::_train_step does it, from public
-    pieces.  Returns (new params, metrics, reset draws of every step)."""
-    a, n = jstate.pose.shape[:2]
-    e = a * n
-    flat = lambda x: x.reshape(e, *x.shape[2:])
-
-    @jax.jit
-    def act(state, obs, noise):
-        value, mean, logstd = model.apply(params, flat(obs.scans),
-                                          flat(obs.goal), flat(obs.speed))
-        raw = mean + jnp.exp(logstd) * noise
-        logprob = jdist.log_normal_density(raw, mean, logstd)
-        scaled = jnp.stack([jnp.clip(raw[:, 0], 0.0, 1.0),
-                            jnp.clip(raw[:, 1], -1.0, 1.0)], axis=-1)
-        out = jenv.step(state, scaled.reshape(a, n, 2))
-        return (value[:, 0], raw, logprob[:, 0]) + out
-
-    obs = jenv._obs(jstate)
-    resets, traj = [], []
-    for t in range(len(noise)):
-        resets.append(_draw(jenv, jstate.key, jstate.pose))
-        value, raw, logprob, jstate, obs_next, reward, done, info = act(
-            jstate, obs, noise[t])
-        traj.append((obs, raw, logprob, value, reward, done, info))
-        obs = obs_next
-    stack = lambda f: jax.tree_util.tree_map(lambda *x: jnp.stack(x),
-                                             *[f(s) for s in traj])
-    obs_t, raw_t, logprob_t, value_t, reward_t, done_t, info_t = (
-        stack(lambda s, i=i: s[i]) for i in range(7))
-    raw_t, logprob_t, value_t = (x.reshape(len(noise), a, n, *x.shape[2:])
-                                 for x in (raw_t, logprob_t, value_t))
-    last_value = model.apply(params, flat(obs.scans), flat(obs.goal),
-                             flat(obs.speed))[0][:, 0]
-
-    t = len(noise)
-    flat_e = lambda x: x.reshape(t, e, *x.shape[3:])
-    targets, advs = jgae.generate_train_data(
-        flat_e(reward_t), flat_e(value_t), last_value,
-        flat_e(done_t.astype(jnp.float32)), 0.99, 0.95)
-    advs = jppo.normalize_advantages(advs)
-    flat_m = lambda x: jnp.moveaxis(x, 0, 2).reshape(t * e, *x.shape[3:])
-    flat_te = lambda x: x.T.reshape(t * e)
-    batch = jppo.Batch(scans=flat_m(obs_t.scans), goal=flat_m(obs_t.goal),
-                       speed=flat_m(obs_t.speed), action=flat_m(raw_t),
-                       logprob=flat_m(logprob_t)[:, None],
-                       target=flat_te(targets)[:, None],
-                       adv=flat_te(advs)[:, None],
-                       weight=flat_m(info_t.valid).astype(jnp.float32))
-    tx = optax.adam(cfg.learning_rate)
-    new_params, _, losses = jppo.ppo_update(model.apply, params,
-                                            tx.init(params), tx, batch, key,
-                                            cfg)
-    metrics = {**{k: float(v) for k, v in losses.items()},
-               "episodes": float(jnp.sum(done_t & info_t.valid)),
-               "ep_return_sum": float(jnp.sum(info_t.ep_return)),
-               "reached": float(jnp.sum(info_t.reached)),
-               "crashed": float(jnp.sum(info_t.crashed)),
-               "reward_mean": float(jnp.mean(reward_t)),
-               "env_steps": t * e}
-    return new_params, metrics, resets
 
 
 def test_one_update_matches_jax_chain():
     jspec = jmini()
     n, beams = jspec.n_robots, jspec.n_beams
-    jenv = JEnv(jspec, lidar_mode="pallas")
     model = JCNNPolicy()
     params = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, beams)),
                         jnp.zeros((1, 2)), jnp.zeros((1, 2)))
-    keys = jax.random.split(jax.random.PRNGKey(2), ARENAS)
-    jstate, _ = jenv.reset(keys)
     # Robots of arena 0 start near the timeout, so episodes end inside the
     # rollout: GAE cuts, episode returns and in-step resets are exercised.
     steps = np.zeros((ARENAS, n), np.int32)
     steps[0] = [146, 147, 148, 149]
-    jstate = jstate.replace(step=jnp.asarray(steps))
-    noise = np.random.default_rng(0).standard_normal(
-        (HORIZON, ARENAS * n, 2)).astype(np.float32)
-    key = jax.random.PRNGKey(3)
-    jcfg = jppo.PPOConfig(batch_size=BATCH, epochs=EPOCHS)
-    jnew, jm, resets = _jax_update(jenv, model, params, jstate, noise, key,
-                                   jcfg)
-    m = HORIZON * ARENAS * n
-    perms = np.stack([np.asarray(jax.random.permutation(k, m))
-                      for k in jax.random.split(key, EPOCHS)])
-
     cfg = TrainConfig(world="mini", n_arenas=ARENAS, horizon=HORIZON,
                       ppo=PPOConfig(batch_size=BATCH, epochs=EPOCHS))
-    tr = Trainer(cfg, device="cpu")
-    state = tr.init_state()
-    state.policy.load_state_dict(jax_params_to_torch(jax.device_get(params)))
-    env_state, _ = tr.env.reset(ARENAS, *_draw(jenv, keys,
-                                               jnp.zeros((ARENAS, n, 3))))
-    env_state.step = torch.from_numpy(steps)
-    state.env_state = env_state
-    before = {k: v.clone() for k, v in state.policy.state_dict().items()}
-    state, metrics = tr.train_step(state, noise=torch.from_numpy(noise),
-                                   resets=resets,
-                                   perms=torch.from_numpy(perms))
-
-    assert jm["episodes"] >= 4 and state.update == 1
-    assert set(metrics) == set(jm)
-    for k, want in jm.items():
-        np.testing.assert_allclose(metrics[k], want, rtol=METRIC_RTOL,
-                                   atol=1e-7, err_msg=k)
-    assert_update_matches_jax(before, state.policy.state_dict(), params,
-                              jnew)
+    metrics, jm = assert_one_update_matches_jax(
+        cfg, JEnv(jspec, lidar_mode="pallas"), model, params, steps)
+    assert jm["episodes"] >= 4
 
 
 def _mini_trainer(seed=0):

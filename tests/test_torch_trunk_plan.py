@@ -4,15 +4,16 @@ The wrapper cuts each batch into conv-block sample ranges and split-K ranges
 and sizes the kernels' workspace; the CUDA launchers cut the same way from
 the numbers it passes and refuse a workspace that is too small.  These tests
 hold the cuts to covering every sample and every k index exactly once and
-the workspace to covering what each pass writes, at the batches the main
-path uses (1, the rollout's 768, acting's 3,072, PPO's 32,768) and a ragged
-one.
+the workspace to covering what each pass writes, at the batches the paths
+use (1; stage 1: the rollout's 768, acting's 3,072, PPO's 32,768; stage 2:
+704 and 8,192; the circle fine-tune: 800 and 10,240; the circle eval: 50
+and 1,600) and a ragged one.
 """
 import pytest
 
 from rl_collision_avoidance_torch.ops import trunk_cuda as tc
 
-BATCHES = [1, 37, 768, 3072, 32768]
+BATCHES = [1, 37, 50, 704, 768, 800, 1600, 3072, 8192, 10240, 32768]
 FRAMES, BEAMS, NFLAT, H = 3, 512, 4096, 256
 
 
@@ -28,9 +29,13 @@ def _covers_once(n, cuts):
 @pytest.mark.parametrize("batch", BATCHES)
 def test_conv_blocks_cover_every_sample_once(batch):
     pl = tc.plan(batch, FRAMES, BEAMS)
-    blocks = tc.ranges(batch, pl.conv_per_block)
+    blocks = tc.conv_ranges(batch, pl.conv_blocks)
     assert len(blocks) == pl.conv_blocks <= tc.H100_SMS
     assert _covers_once(batch, blocks)
+    # ranges that differ by at most one group, each a whole number of groups
+    sizes = [-(-(hi - lo) // tc.FWD_GROUP) for lo, hi in blocks]
+    assert max(sizes) - min(sizes) <= 1
+    assert all(lo % tc.FWD_GROUP == 0 for lo, _ in blocks)
     # the forward conv pass walks each block two samples at a time
     steps = [(b, min(b + tc.FWD_GROUP, hi)) for lo, hi in blocks
              for b in range(lo, hi, tc.FWD_GROUP)]
@@ -64,7 +69,7 @@ def test_workspace_covers_what_the_plan_writes(batch):
               "fc1_part": part(batch, H, pl.fc1_splits)}),
             (pl.bwd_regions(), pl.bwd_workspace,
              {"flat": 2 * batch * NFLAT, "g1": 2 * batch * H,
-              "conv_part": 2 * len(tc.ranges(batch, pl.conv_per_block)) * psize,
+              "conv_part": 2 * pl.conv_blocks * psize,
               "k_part": max(part(batch, H, pl.fc1_splits),
                             part(H, NFLAT, pl.dwf_splits))})):
         assert set(regions) == set(writes)
@@ -82,7 +87,9 @@ def test_plan_fills_the_card(batch):
     the best count up to MAX_SPLITS would."""
     pl = tc.plan(batch, FRAMES, BEAMS)
     slots = tc.BLOCKS_PER_SM * tc.H100_SMS
-    assert pl.conv_per_block == tc.FWD_GROUP or \
+    per_block = max(hi - lo for lo, hi in tc.conv_ranges(batch,
+                                                          pl.conv_blocks))
+    assert per_block <= tc.FWD_GROUP or \
         pl.conv_blocks >= 0.9 * tc.H100_SMS
     fill = lambda blocks: blocks / (-(-blocks // slots) * slots)
     for tiles, ktiles, splits in (
