@@ -17,7 +17,12 @@ path ran through the kernels, at those batch sizes, and stayed right:
 - the circle fine-tune (16 arenas x 50 robots from the fine-tuned weights,
   one update);
 - a checkpoint round trip: a stage-2 update after a save and a restore into
-  a fresh Trainer is bit-equal to the update without the break.
+  a fresh Trainer is bit-equal to the update without the break;
+- in bf16 (``--bf16 --obs-bf16``: the trunk kernels' bf16 mode, a bf16
+  policy tail, bf16 scans): stage-1 acting at 128 arenas and stage-1
+  training at 32 arenas, with the bf16 trunk forward held to its plain
+  bf16 version at B = 768, 3,072 and 32,768 and the bf16 backward at
+  32,768.
 
 Each kernel's time is its device time (torch.profiler's kernel durations
 over many calls), beside the wrapper's host microseconds a call.  It also
@@ -29,13 +34,15 @@ launch at B = 32,768 (torch.profiler).  It writes nothing into the tree
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  Exits non-zero, with no
 result line, when there is no card or when the port is not beside it.  Its
-last three lines are the JSON record of each kernel on each path, world and
-batch size (launches counted on that path, times measured at that batch),
+last three lines are the JSON record of each kernel on each path, world,
+batch size and precision (launches counted on that path, times measured at
+that batch),
 the card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -87,6 +94,17 @@ BWD_TOL = 1e-5
 GRAD_ATOL = 1e-3
 GRAD_NORM = 1e-4
 GRAD_MINIBATCHES = 3
+# A bf16 policy's dense tail (fc2 and the heads) gives its weights bf16
+# gradients, as JAX's bf16 dense does: each element is the bf16 rounding of
+# float32 sums that the two paths take over nearly the same terms, so it is
+# bit-equal or, where the rounding falls the other way, one bf16 ulp apart.
+# Those leaves hold, per element, GRAD_ATOL of the largest value or one ulp
+# of their own (BF16_ULP), and BF16_ULP in relative 2-norm (the most even
+# every element one ulp apart gives).  The check sums both paths' bf16
+# products in float32 (float32_sums); PyTorch's default lets cuBLAS add
+# split-K partials in bf16, another rounding on each side.  The trunk
+# leaves (float32, from the kernels) and logstd hold the float32 rule.
+TRUNK_LEAVES = ("act_fea", "crt_fea", "act_fc1", "crt_fc1", "logstd")
 # The loss is piecewise: the ReLUs of the convs and fc1 (in the trunks) and
 # of fc2 (in the heads), and the PPO clip.  A sample whose pre-activation
 # lies within the two paths' forward difference of 0 takes another piece on
@@ -110,9 +128,33 @@ MAX_FLIP_SHARE = 5e-3
 # that misses it is held to the float64 plain path instead, within
 # GRAD_ATOL and GRAD_NORM of its |terms| scale, as BWD_TOL is of the
 # |terms| sum (the kernel path read 5.1e-6 to 7.6e-6).
-# Published H100 SXM peaks (NVIDIA data sheet): HBM and non-tensor float32.
+# The bf16 mode (trunk_cuda precision="bf16", CNNPolicy(dtype=bfloat16),
+# bf16 scans).  The kernels and the plain bf16 versions round every product
+# operand and every output to bf16 at the same points and add the same
+# exact products in float32, in other orders.  So an output is bit-equal on
+# the two paths, or, where its float32 value lies within the paths'
+# float32 difference (~1e-6 of it) of a bf16 rounding boundary, one bf16 ulp
+# apart; an ulp is at most BF16_ULP of the value.  Such rounding flips are
+# counted: the outputs beyond the float32 rule must each lie within one ulp
+# (plus that rule's absolute part, for a ReLU at zero), and number at most
+# BF16_FLIP_SHARE of the outputs.  Expected: ~1e-3 of the features (2 x
+# 1e-6 / 2^-8 at the fc1 output, plus flips carried from the conv roundings
+# before it); read on the CPU (plain bf16 trunks in float32 against float64):
+# 5e-5 of the features with the trained stage-1 weights, 8e-4 with random
+# weights, and no flipped value or mean.  In a gradient, a rounding that
+# falls the other way on the two paths moves each term it enters by at most
+# one ulp of one factor: an element beyond the float32 rule (BWD_TOL of its
+# |terms| sum) must lie within BF16_ULP of that sum, and such elements number
+# at most BF16_FLIP_SHARE of a leaf.  In a training minibatch a sample whose
+# value or mean differs between the two paths counts as taking another
+# piece (MAX_FLIP_SHARE).
+BF16_ULP = 2.0 ** -7
+BF16_FLIP_SHARE = 1e-2
+# Published H100 SXM peaks (NVIDIA data sheet): HBM, non-tensor float32 and
+# dense bf16 tensor-core products.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 
 def phase(name):
@@ -164,6 +206,21 @@ def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     return ms / iters, host_us
 
 
+@contextlib.contextmanager
+def float32_sums():
+    """bf16 products on the card with float32 sums throughout (no bf16
+    split-K reduction in cuBLAS), restoring the setting on exit."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            prev)
+
+
 def timed(fn, device):
     """(fn(), device ms from CUDA events); the time is None off the card."""
     import torch
@@ -179,9 +236,11 @@ def timed(fn, device):
     return out, start.elapsed_time(end)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time in ms for moving ``nbytes`` and doing ``ops`` f32 ops."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least time in ms for moving ``nbytes`` and doing ``ops`` operations
+    at ``ops_per_s`` (float32 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -327,8 +386,8 @@ def check_lidar(device, world: str, arenas: int):
     record = {"name": "lidar_obs", "route": "cuda",
               "source": "rl_collision_avoidance_torch/ops/csrc/lidar.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/lidar_pallas.py:35",
-              "world": world, "batch": a * n, "max_abs_err": err,
-              "library_ms": None}
+              "world": world, "batch": a * n, "precision": "float32",
+              "max_abs_err": err, "library_ms": None}
     if device.type == "cuda":
         record["ms"], record["host_us"] = time_ms(
             lambda: lidar_cuda.lidar_obs(pose, *args), 50)
@@ -338,8 +397,46 @@ def check_lidar(device, world: str, arenas: int):
     return record
 
 
+def flip_check(diff, tight, loose, what: str) -> int:
+    """The bf16 rule for outputs or gradient elements: where ``diff``
+    exceeds ``tight`` (the float32 rule) it must stay within ``loose`` (one
+    bf16 ulp), at no more than BF16_FLIP_SHARE of the elements; returns how
+    many exceed ``tight``."""
+    over = diff > tight
+    n = int(over.sum())
+    if not bool((diff <= loose).all()) or n > BF16_FLIP_SHARE * diff.numel():
+        raise AssertionError(f"{what}: {n} of {diff.numel()} elements beyond "
+                             f"the float32 rule (limit "
+                             f"{BF16_FLIP_SHARE * diff.numel():.0f}), the "
+                             f"worst {float((diff - loose).max()):.3g} beyond "
+                             f"one bf16 ulp")
+    return n
+
+
+def check_features(got, want, precision: str, what: str) -> int:
+    """Trunk features of the kernel against its plain version: float32 within
+    TRUNK_ATOL + TRUNK_RTOL |want|; bf16 by :func:`flip_check`.  Returns the
+    bf16 rounding flips (0 in float32)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    tight = TRUNK_ATOL + TRUNK_RTOL * want.float().abs()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite features")
+    if precision == "float32":
+        if not bool((diff <= tight).all()):
+            raise AssertionError(f"{what}: differs from its plain version by "
+                                 f"{float(diff.max())} (atol {TRUNK_ATOL}, "
+                                 f"rtol {TRUNK_RTOL})")
+        return 0
+    return flip_check(diff, tight, TRUNK_ATOL + BF16_ULP * want.float().abs(),
+                      what)
+
+
 @phase("trunk kernel vs plain")
-def check_trunk(device, world: str, batch: int):
+def check_trunk(device, world: str, batch: int, precision: str = "float32"):
+    """The forward kernel against its plain version on the world's scans at
+    ``batch``; in bf16 mode on bf16 scans, as ``--obs-bf16`` stores them."""
     import torch
     import torch.nn.functional as F
 
@@ -349,73 +446,96 @@ def check_trunk(device, world: str, batch: int):
     from rl_collision_avoidance_torch.worlds import get_world
 
     spec = get_world(world)
+    dtype = trunk_cuda.PRECISIONS[precision]
     policy = load_policy(WORLD_PARAMS[world], device=device)
-    env = Env(spec, device=device, seed=SEED + 1)
+    env = Env(spec, device=device, seed=SEED + 1, obs_dtype=dtype)
     _, obs = env.reset(-(-batch // spec.n_robots))
     scans = obs.scans.reshape(-1, spec.laser_frames,
                               spec.n_beams)[:batch].contiguous()
     act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
     with torch.no_grad():
-        got = trunk_cuda.twin_trunks(scans, act, crt)
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt)
-    err = float((got - want).abs().max())
+        got = trunk_cuda.twin_trunks(scans, act, crt, precision)
+        want = trunk_cuda.twin_trunks_plain(scans, act, crt, precision)
+    err = float((got.float() - want.float()).abs().max())
     if device.type == "cuda":
         torch.cuda.synchronize()
-    limit = (TRUNK_ATOL + TRUNK_RTOL * want.abs()).sub((got - want).abs())
-    if not (bool((limit >= 0).all()) and torch.isfinite(got).all()):
-        raise AssertionError(f"trunk kernel differs from its plain version "
-                             f"by {err} (atol {TRUNK_ATOL}, rtol "
-                             f"{TRUNK_RTOL})")
+    flips = check_features(got, want, precision, f"trunk kernel ({precision})")
     b, frames, beams = scans.shape
-    print(f"trunk: {world} scans: max |kernel - plain| = {err:.3g} on B = "
-          f"{b} ({trunk_cuda.plan_for(scans)}), features up to "
-          f"{float(want.abs().max()):.3g}", flush=True)
+    print(f"trunk: {world} scans ({scans.dtype}), {precision}: max |kernel - "
+          f"plain| = {err:.3g} on B = {b} ({trunk_cuda.plan_for(scans, precision)}), "
+          f"features up to {float(want.float().abs().max()):.3g}; bf16 "
+          f"rounding flips {flips} of {got.numel()}", flush=True)
 
     per_sample, _ = trunk_ops(frames, beams)
     ops = 2 * b * per_sample              # two trunks; FMA = 2 ops
-    nbytes = 4 * (scans.numel() + sum(w.numel() for w in (*act, *crt))
-                  + got.numel())
+    nbytes = (scans.numel() * scans.element_size()
+              + 4 * sum(w.numel() for w in (*act, *crt))
+              + got.numel() * got.element_size())
     record = {"name": "twin_trunks", "route": "cuda",
               "source": "rl_collision_avoidance_torch/ops/csrc/trunk_fwd.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/trunk_pallas.py:147",
-              "world": world, "batch": b, "max_abs_err": err}
+              "world": world, "batch": b, "precision": precision,
+              "max_abs_err": err}
+    lib_w = [[w.to(dtype) for w in ws] for ws in (act, crt)]
+    lib_x = scans.to(dtype)
 
-    def library():  # the bare cuDNN / cuBLAS calls, exact float32
+    def library():  # the bare cuDNN / cuBLAS calls: exact float32, or bf16
         with trunk_cuda.exact_float32():
-            for w1, b1, w2, b2, wf, bf in (act, crt):
-                y = F.relu(F.conv1d(scans, w1, b1, stride=2, padding=1))
+            for w1, b1, w2, b2, wf, bf in lib_w:
+                y = F.relu(F.conv1d(lib_x, w1, b1, stride=2, padding=1))
                 y = F.relu(F.conv1d(y, w2, b2, stride=2, padding=1))
                 F.relu(F.linear(y.flatten(1), wf, bf))
 
     if device.type == "cuda":
         with torch.no_grad():
             record["ms"], record["host_us"] = time_ms(
-                lambda: trunk_cuda.twin_trunks(scans, act, crt), 20)
+                lambda: trunk_cuda.twin_trunks(scans, act, crt, precision), 20)
             record["plain_ms"] = time_ms(
-                lambda: trunk_cuda.twin_trunks_plain(scans, act, crt), 20)[0]
+                lambda: trunk_cuda.twin_trunks_plain(scans, act, crt,
+                                                     precision), 20)[0]
             record["library_ms"] = time_ms(library, 20)[0]
-    record["bound_ms"], record["bound_by"] = bound(nbytes, ops)
+    record["bound_ms"], record["bound_by"] = bound(
+        nbytes, ops, BF16_OPS_PER_S if precision == "bf16" else F32_OPS_PER_S)
     return record
 
 
+def reset_counts():
+    """Every kernel's launch counts to 0."""
+    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+
+    lidar_cuda.launches = trunk_cuda.launches = trunk_cuda.bwd_launches = 0
+    trunk_cuda.launches_by_mode.clear()
+
+
+def read_counts(robots: int) -> dict:
+    """Launches since :func:`reset_counts` by (kernel, batch, precision);
+    the lidar, at ``robots``, runs in float32 in either mode."""
+    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+
+    return {("lidar_obs", robots, "float32"): lidar_cuda.launches,
+            **trunk_cuda.launches_by_mode}
+
+
 @phase("stage-1 acting slice")
-def run_slice(device, card: str):
+def run_slice(device, card: str, bf16: bool = False):
+    """Stage-1 acting through ``bench.run_acting``; ``bf16``: the policy
+    and the scan history in bf16 (``bench --bf16 --obs-bf16``)."""
     import torch
 
     from rl_collision_avoidance_torch import bench
     from rl_collision_avoidance_torch.engine.env import Env
     from rl_collision_avoidance_torch.models import load_policy
-    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
     from rl_collision_avoidance_torch.worlds import stage1
 
     spec = stage1()
-    policy = load_policy(PARAMS, device=device)
-    env = Env(spec, device=device, seed=SEED)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    precision = "bf16" if bf16 else "float32"
+    policy = load_policy(PARAMS, device=device, dtype=dtype)
+    env = Env(spec, device=device, seed=SEED, obs_dtype=dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
 
-    lidar_cuda.launches = trunk_cuda.launches = 0
-    trunk_cuda.launches_by_batch.clear()
+    reset_counts()
     state, obs = env.reset(ARENAS)
     state, obs, warm = bench.run_acting(env, policy, state, obs, WARMUP_STEPS,
                                         gen)
@@ -430,35 +550,36 @@ def run_slice(device, card: str):
         end.record()
         torch.cuda.synchronize()
     robots = ARENAS * spec.n_robots
-    launches = {("lidar_obs", robots): lidar_cuda.launches,
-                **{("twin_trunks", b): n for b, n in
-                   trunk_cuda.launches_by_batch.items()}}
+    launches = read_counts(robots)
 
     ends = (warm["ends"] + stats["ends"]).tolist()
     goal, crash, timeout = ends[1:]
     finite = bool(warm["finite"] & stats["finite"])
-    print(f"slice: {WARMUP_STEPS} + {SLICE_STEPS} steps of {ARENAS} arenas "
-          f"x {spec.n_robots} robots; episode ends goal {goal} crash {crash} "
-          f"timeout {timeout}; kernel launches (name, batch): "
-          f"{launches}", flush=True)
+    print(f"slice ({precision}, scans {obs.scans.dtype}): {WARMUP_STEPS} + "
+          f"{SLICE_STEPS} steps of {ARENAS} arenas x {spec.n_robots} robots; "
+          f"episode ends goal {goal} crash {crash} timeout {timeout}; kernel "
+          f"launches (name, batch, precision): {launches}", flush=True)
     if on_card:
         seconds = start.elapsed_time(end) / 1e3
-        print(f"slice: {robots * SLICE_STEPS / seconds:.1f} robot-steps/s "
-              f"({seconds * 1e3 / SLICE_STEPS:.3f} ms/step, CUDA events) on "
-              f"{torch.cuda.get_device_name(device)} [{card}]", flush=True)
+        print(f"slice ({precision}): {robots * SLICE_STEPS / seconds:.1f} "
+              f"robot-steps/s ({seconds * 1e3 / SLICE_STEPS:.3f} ms/step, "
+              f"CUDA events) on {torch.cuda.get_device_name(device)} "
+              f"[{card}]", flush=True)
     if not finite:
         raise AssertionError("non-finite reward or observation in the slice")
-    if on_card and not (launches[("lidar_obs", robots)]
-                        and set(launches) == {("lidar_obs", robots),
-                                              ("twin_trunks", robots)}):
+    if on_card and not (launches[("lidar_obs", robots, "float32")]
+                        and set(launches) == {
+                            ("lidar_obs", robots, "float32"),
+                            ("twin_trunks", robots, precision)}):
         raise AssertionError(f"a kernel of the path never ran, or ran at "
                              f"another batch: {launches}")
     ended = goal + crash + timeout
     if ended == 0 or goal / ended < 0.5:
         raise AssertionError(f"the trained stage-1 policy reached the goal in "
                              f"{goal} of {ended} episodes (< 50%)")
-    print(f"slice: goal share {goal / ended:.3f} of {ended} ended episodes "
-          f"(the JAX training run's stage-1 plateau is ~0.85)", flush=True)
+    print(f"slice ({precision}): goal share {goal / ended:.3f} of {ended} "
+          f"ended episodes (the JAX training run's stage-1 plateau is ~0.85)",
+          flush=True)
     compare_plain_step(env, policy, state, obs)
     return launches
 
@@ -467,14 +588,20 @@ def compare_plain_step(env, policy, state, obs):
     """One more step of the slice's state through the plain path (plain trunk
     + the env with use_kernels=False) against the kernel path, with the same
     noise and reset draws.  Both envs step with the kernel path's action, so
-    the lidar comparison sees identical poses."""
+    the lidar comparison sees identical poses.  In bf16 the actions follow
+    the bf16 rule of BF16_FLIP_SHARE (a pre-activation or a mean one ulp
+    apart), and the bf16 scans may round a lidar range within LIDAR_ATOL
+    one ulp apart."""
     import torch
 
     from rl_collision_avoidance_torch import bench
     from rl_collision_avoidance_torch.engine.env import Env
+    from rl_collision_avoidance_torch.models.policy import PRECISION
     from rl_collision_avoidance_torch.ops.trunk_cuda import twin_trunks_plain
 
-    plain_env = Env(env.spec, device=env.device, use_kernels=False)
+    precision = PRECISION[policy.dtype]
+    plain_env = Env(env.spec, device=env.device, use_kernels=False,
+                    obs_dtype=env.obs_dtype)
     a, n = obs.scans.shape[:2]
     noise = torch.randn((a * n, 2), generator=env.generator,
                         device=env.device)
@@ -484,24 +611,53 @@ def compare_plain_step(env, policy, state, obs):
     with torch.no_grad():
         feats = twin_trunks_plain(obs.scans.reshape(a * n, *obs.scans.shape[2:]),
                                   policy.trunk_weights("act"),
-                                  policy.trunk_weights("crt"))
+                                  policy.trunk_weights("crt"), precision)
         _, mean, logstd = policy.heads(feats, obs.goal.reshape(a * n, 2),
                                        obs.speed.reshape(a * n, 2))
         plain_action = (mean + torch.exp(logstd) * noise).reshape(a, n, 2)
     s_p, o_p, r_p, d_p, _ = plain_env.step(state, action, rp, rg)
-    errs = {"action": float((action - plain_action).abs().max()),
+    d_act = (action - plain_action).abs()
+    d_scan = (o_k.scans.float() - o_p.scans.float()).abs()
+    errs = {"action": float(d_act.max()),
             "reward": float((r_k - r_p).abs().max()),
-            "scans": float((o_k.scans - o_p.scans).abs().max()),
+            "scans": float(d_scan.max()),
             "pose": float((s_k.pose - s_p.pose).abs().max())}
-    print(f"plain-path step: max |kernel path - plain path| {errs}; done "
-          f"agrees: {bool((d_k == d_p).all())}", flush=True)
-    if not (errs["action"] <= POLICY_ATOL and errs["reward"] == 0.0
-            and errs["pose"] == 0.0 and errs["scans"] <= LIDAR_ATOL
+    flips = 0
+    if precision == "bf16":
+        # mean = (sigmoid(x0), tanh(x1)), x = w . h + b over the 128 bf16
+        # activations h of act_fc2: a rounding of h or of x that falls the
+        # other way moves x by at most one ulp of its terms' sum S =
+        # |w| . |h| + |b|, so mean by the slope (at most 1/4, 1) times
+        # BF16_ULP S, plus one ulp of mean for its own rounding
+        with torch.no_grad():
+            dt = policy.dtype
+            gs = torch.cat([obs.goal, obs.speed], -1).reshape(a * n, 4)
+            h = torch.relu(policy.dense(torch.cat([feats[0].to(dt),
+                                                   gs.to(dt)], -1),
+                                        policy.act_fc2)).double().abs()
+            terms = torch.cat([
+                h @ head.weight.double().abs().T + head.bias.double().abs()
+                for head in (policy.actor1, policy.actor2)], -1)
+        slope = torch.tensor([0.25, 1.0], device=terms.device,
+                             dtype=torch.float64)
+        m = mean.reshape(a, n, 2).double()
+        flips = flip_check(d_act, POLICY_ATOL, POLICY_ATOL + BF16_ULP
+                           * (m.abs() + slope * terms.reshape(a, n, 2)),
+                           "bf16 actions")
+        scans_ok = bool((d_scan <= LIDAR_ATOL + BF16_ULP
+                         * o_p.scans.float().abs()).all())
+    else:
+        scans_ok = errs["scans"] <= LIDAR_ATOL
+    print(f"plain-path step ({precision}): max |kernel path - plain path| "
+          f"{errs}; actions beyond {POLICY_ATOL}: {flips}; done agrees: "
+          f"{bool((d_k == d_p).all())}", flush=True)
+    if not ((errs["action"] <= POLICY_ATOL or precision == "bf16")
+            and errs["reward"] == 0.0 and errs["pose"] == 0.0 and scans_ok
             and bool((d_k == d_p).all())):
         raise AssertionError(f"the kernel path left the plain path: {errs}")
 
 
-def trunk_grads_limits(scans, act, crt, g):
+def trunk_grads_limits(scans, act, crt, g, precision: str = "float32"):
     """For each trunk, two tuples of six float64 limits for the weight
     gradients' float32 rounding: the sum of the absolute values of each
     gradient's terms, and what the fc1 ReLUs that float32 may turn either way
@@ -512,25 +668,31 @@ def trunk_grads_limits(scans, act, crt, g):
     which bounds the activation's own rounding as well; a ReLU whose
     pre-activation lies within BWD_TOL of that sum counts as open.  An fc1
     ReLU that near zero may flip, and then moves its whole term (one of the
-    batch's 32,768); a conv ReLU flip moves one term of millions."""
+    batch's 32,768); a conv ReLU flip moves one term of millions.  In bf16
+    mode the forward rounds its operands as the kernels do, so that the fc1
+    pre-activations are the bf16 function's."""
     import torch.nn.functional as F
     from torch.nn.grad import conv1d_input, conv1d_weight
 
-    x = scans.double()
+    from rl_collision_avoidance_torch.ops.trunk_cuda import round_bf16
+
+    rnd = round_bf16 if precision == "bf16" else (lambda v: v)
+    x = rnd(scans.double())
     xa = x.abs()
     out = []
     for t, ws in enumerate((act, crt)):
         w1, b1, w2, b2, wf, bf = (w.double() for w in ws)
+        w1, w2, wf = rnd(w1), rnd(w2), rnd(wf)
         open_ = lambda z, za: z > -BWD_TOL * za
         z1 = F.conv1d(x, w1, b1, stride=2, padding=1)
         z1a = F.conv1d(xa, w1.abs(), b1.abs(), stride=2, padding=1)
         m1 = open_(z1, z1a)
         y1a = z1a * m1
-        z2 = F.conv1d(z1.clamp(min=0), w2, b2, stride=2, padding=1)
+        z2 = F.conv1d(rnd(z1.clamp(min=0)), w2, b2, stride=2, padding=1)
         z2a = F.conv1d(y1a, w2.abs(), b2.abs(), stride=2, padding=1)
         m2 = open_(z2, z2a)
         flat_a = (z2a * m2).flatten(1)
-        z3 = F.linear(z2.clamp(min=0).flatten(1), wf, bf)
+        z3 = F.linear(rnd(z2.clamp(min=0).flatten(1)), wf, bf)
         z3a = F.linear(flat_a, wf.abs(), bf.abs())
         ga = g[t].double().abs()
 
@@ -551,8 +713,44 @@ def trunk_grads_limits(scans, act, crt, g):
     return out
 
 
+def check_grads(got, want, limits, precision: str, what: str,
+                gate: bool = True) -> int:
+    """Gradients (12 leaves, actor then critic) against the float64 plain
+    version ``want``, with ``limits`` from :func:`trunk_grads_limits`: each
+    element within BWD_TOL of its |terms| sum plus its near-ReLU terms; in
+    bf16 by :func:`flip_check`, beyond that within BF16_ULP of the sum.
+    Returns the elements beyond the float32 rule; raises only with
+    ``gate``."""
+    import torch
+
+    from rl_collision_avoidance_torch.ops import trunk_cuda
+
+    scale, near = ([*x[0], *x[1]] for x in zip(*limits))
+    names = [f"{t}.{n}" for t in ("act", "crt")
+             for n in trunk_cuda.WEIGHT_NAMES]
+    flips = 0
+    for name, k, w, sc, nz in zip(names, got, want, scale, near):
+        diff = (k.double() - w).abs()
+        tight = BWD_TOL * sc + nz
+        if not gate:
+            flips += int((diff > tight).sum())
+        elif not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{what}: non-finite gradient of {name}")
+        elif precision == "bf16":
+            flips += flip_check(diff, tight, tight + BF16_ULP * sc,
+                                f"{what}, {name}")
+        elif not bool((diff <= tight).all()):
+            raise AssertionError(f"{what} differs from the float64 plain "
+                                 f"version on {name} by more than {BWD_TOL} "
+                                 f"of its |terms| sum")
+    return flips
+
+
 @phase("trunk backward kernel vs plain")
-def check_trunk_bwd(device, world: str, batch: int):
+def check_trunk_bwd(device, world: str, batch: int,
+                    precision: str = "float32"):
+    """The backward kernel against its plain version in float64 on the
+    world's scans; in bf16 mode on bf16 scans with a bf16 cotangent."""
     import torch
     import torch.nn.functional as F
 
@@ -563,8 +761,9 @@ def check_trunk_bwd(device, world: str, batch: int):
     from rl_collision_avoidance_torch.worlds import get_world
 
     spec = get_world(world)
+    dtype = trunk_cuda.PRECISIONS[precision]
     policy = load_policy(WORLD_PARAMS[world], device=device)
-    env = Env(spec, device=device, seed=SEED + 2)
+    env = Env(spec, device=device, seed=SEED + 2, obs_dtype=dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
     # the world's scans with three distinct frames: two acting steps after
@@ -573,92 +772,94 @@ def check_trunk_bwd(device, world: str, batch: int):
     _, obs, _ = bench.run_acting(env, policy, state, obs, 2, gen)
     scans = obs.scans.reshape(-1, spec.laser_frames,
                               spec.n_beams)[:batch].contiguous()
-    g = torch.randn((2, batch, 256), generator=gen, device=device)
+    g = torch.randn((2, batch, 256), generator=gen, device=device).to(dtype)
     act = [w.detach() for w in policy.trunk_weights("act")]
     crt = [w.detach() for w in policy.trunk_weights("crt")]
-    names = [f"{t}.{n}" for t in ("act", "crt")
-             for n in trunk_cuda.WEIGHT_NAMES]
     flat = lambda pair: [*pair[0], *pair[1]]
 
-    got = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g))
-    again = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g))
-    plain = flat(trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g))
+    got = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g, precision))
+    again = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g, precision))
+    plain = flat(trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g,
+                                                    precision))
     want = flat(trunk_cuda.twin_trunks_grads_plain(
         scans.double(), [w.double() for w in act], [w.double() for w in crt],
-        g.double()))
+        g.double(), precision))
     if device.type == "cuda":
         torch.cuda.synchronize()  # a fault inside the kernel surfaces here
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("two launches of the trunk backward kernel on "
                              "the same inputs differ")
-    scale, near = (flat(x) for x in zip(*trunk_grads_limits(
-        scans, act, crt, g)))
-    worst = {"kernel": 0.0, "plain": 0.0}
-    for name, k, p, w, sc, nz in zip(names, got, plain, want, scale, near):
-        limit = BWD_TOL * sc + nz
-        for who, v in (("kernel", k), ("plain", p)):
-            r = float(((v.double() - w).abs() / limit.clamp(min=1e-30)).max())
-            worst[who] = max(worst[who], r)
-        if not (bool(torch.isfinite(k).all())
-                and bool(((k.double() - w).abs() <= limit).all())):
-            raise AssertionError(f"trunk backward kernel differs from the "
-                                 f"float64 plain version on {name} by more "
-                                 f"than {BWD_TOL} of its |terms| sum")
+    limits = trunk_grads_limits(scans, act, crt, g, precision)
+    flips = check_grads(got, want, limits, precision,
+                        f"trunk backward kernel ({precision})")
+    plain_flips = check_grads(plain, want, limits, precision, "", gate=False)
+    scale, near = ([*x[0], *x[1]] for x in zip(*limits))
+    worst = {who: max(float(((v.double() - w).abs() / (BWD_TOL * sc + nz)
+                             .clamp(min=1e-30)).max())
+                      for v, w, sc, nz in zip(vs, want, scale, near))
+             for who, vs in (("kernel", got), ("plain", plain))}
     err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
     top = max(float(w.abs().max()) for w in want)
-    print(f"trunk backward: {world} scans, B = {batch}; worst |error| / "
-          f"limit against the float64 plain version: kernel {worst['kernel']:.3g}, float32 "
-          f"plain version {worst['plain']:.3g}; max |kernel - plain| = "
-          f"{err:.3g} with gradients up to {top:.3g}; two launches "
-          f"bit-equal", flush=True)
+    print(f"trunk backward: {world} scans ({scans.dtype}), {precision}, B = "
+          f"{batch}; worst |error| / limit against the float64 plain version: "
+          f"kernel {worst['kernel']:.3g}, float32 plain version "
+          f"{worst['plain']:.3g}; elements beyond the float32 rule: kernel "
+          f"{flips}, plain {plain_flips}; max |kernel - plain| = {err:.3g} "
+          f"with gradients up to {top:.3g}; two launches bit-equal",
+          flush=True)
 
     b, frames, beams = scans.shape
     _, per_sample = trunk_ops(frames, beams)
-    nbytes = 4 * (scans.numel() + g.numel()
-                  + 2 * sum(w.numel() for w in (*act, *crt)))
+    nbytes = (scans.numel() * scans.element_size() + g.numel() * g.element_size()
+              + 2 * 4 * sum(w.numel() for w in (*act, *crt)))
     record = {"name": "twin_trunks_grads", "route": "cuda",
               "source": "rl_collision_avoidance_torch/ops/csrc/trunk_bwd.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/trunk_pallas.py:155",
-              "world": world, "batch": b, "max_abs_err": err}
+              "world": world, "batch": b, "precision": precision,
+              "max_abs_err": err}
+    lib_x = scans.to(dtype)
 
     def library():  # autograd through the bare cuDNN / cuBLAS calls
-        ws = [w.detach().requires_grad_() for w in (*act, *crt)]
+        ws = [w.detach().to(dtype).requires_grad_() for w in (*act, *crt)]
         with trunk_cuda.exact_float32():
             outs = []
             for w1, b1, w2, b2, wf, bf in (ws[:6], ws[6:]):
-                y = F.relu(F.conv1d(scans, w1, b1, stride=2, padding=1))
+                y = F.relu(F.conv1d(lib_x, w1, b1, stride=2, padding=1))
                 y = F.relu(F.conv1d(y, w2, b2, stride=2, padding=1))
                 outs.append(F.relu(F.linear(y.flatten(1), wf, bf)))
             torch.autograd.grad(outs, ws, (g[0], g[1]))
 
     if device.type == "cuda":
         record["ms"], record["host_us"] = time_ms(
-            lambda: trunk_cuda.twin_trunks_grads(scans, act, crt, g), 5, 1)
+            lambda: trunk_cuda.twin_trunks_grads(scans, act, crt, g,
+                                                 precision), 5, 1)
         record["plain_ms"] = time_ms(
-            lambda: trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g), 5,
-            1)[0]
+            lambda: trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g,
+                                                       precision), 5, 1)[0]
         record["library_ms"] = time_ms(library, 5, 1)[0]
-    record["bound_ms"], record["bound_by"] = bound(nbytes,
-                                                   2 * b * per_sample)
+    record["bound_ms"], record["bound_by"] = bound(
+        nbytes, 2 * b * per_sample,
+        BF16_OPS_PER_S if precision == "bf16" else F32_OPS_PER_S)
     return record
 
 
 # The kernels' passes by the CUDA symbol names torch.profiler reports
 # (demangled or not): the conv passes, the product core's instances (A and B
-# k-contiguous or not, epilogue), its split-K reduce, the backward's reduce.
+# k-contiguous or not, epilogue; then the types), its split-K reduce, the
+# backward's reduce.
 PASSES = (("conv_fwd_kernel", "conv pass"), ("conv_bwd_kernel", "conv_bwd"),
           ("splitk_reduce", "split-K reduce"), ("reduce_kernel", "reduce"),
-          ("gemm_kernel<true,true,1>|ILb1ELb1ELi1E", "fc1 product"),
-          ("gemm_kernel<true,true,2>|ILb1ELb1ELi2E", "g1 product"),
-          ("gemm_kernel<false,false,0>|ILb0ELb0ELi0E", "dWf product"),
-          ("gemm_kernel<true,false,3>|ILb1ELb0ELi3E", "dflat product"))
+          ("gemm_kernel<true,true,1,|ILb1ELb1ELi1E", "fc1 product"),
+          ("gemm_kernel<true,true,2,|ILb1ELb1ELi2E", "g1 product"),
+          ("gemm_kernel<false,false,0,|ILb0ELb0ELi0E", "dWf product"),
+          ("gemm_kernel<true,false,3,|ILb1ELb0ELi3E", "dflat product"))
 
 
 @phase("trunk kernels by pass")
 def pass_times(device):
     """Device ms of each pass of one forward and one backward launch at
-    B = BWD_BATCH, from torch.profiler; "not measured" where the profiler
-    shows no device time."""
+    B = BWD_BATCH in each mode (bf16 on bf16 scans), from torch.profiler;
+    "not measured" where the profiler shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -673,11 +874,17 @@ def pass_times(device):
     scans = torch.rand((BWD_BATCH, 3, 512), generator=gen, device=device)
     g = torch.randn((2, BWD_BATCH, 256), generator=gen, device=device)
     out = {}
+    x16, g16 = scans.to(torch.bfloat16), g.to(torch.bfloat16)
     for name, fn in (("twin_trunks",
                       lambda: trunk_cuda.twin_trunks(scans, act, crt)),
                      ("twin_trunks_grads",
                       lambda: trunk_cuda.twin_trunks_grads(scans, act, crt,
-                                                           g))):
+                                                           g)),
+                     ("twin_trunks bf16",
+                      lambda: trunk_cuda.twin_trunks(x16, act, crt, "bf16")),
+                     ("twin_trunks_grads bf16",
+                      lambda: trunk_cuda.twin_trunks_grads(x16, act, crt, g16,
+                                                           "bf16"))):
         fn()
         torch.cuda.synchronize()
         with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) \
@@ -705,11 +912,12 @@ def run_training(device, card: str, cfg, params, updates: int,
     the weights ``params``, through the kernels; checks the launch counts,
     finite losses, moved parameters, the goal share of ended episodes
     (unless ``min_goal`` is None) and the minibatch gradients against the
-    plain path (``f64``: see compare_minibatch_grads).  Returns (launches by
-    (name, batch), trainer, state)."""
+    plain path (``f64``: see compare_minibatch_grads), in the precision of
+    ``cfg.policy_dtype``.  Returns (launches by (name, batch, precision),
+    trainer, state)."""
     import torch
 
-    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+    from rl_collision_avoidance_torch.models.policy import PRECISION
     from rl_collision_avoidance_torch.train import Trainer
     from rl_collision_avoidance_torch.utils.params import (
         jax_params_to_torch, load_jax_npz)
@@ -719,18 +927,15 @@ def run_training(device, card: str, cfg, params, updates: int,
     state.policy.load_state_dict(jax_params_to_torch(load_jax_npz(params)))
     start_params = [p.detach().clone() for p in state.policy.parameters()]
 
-    lidar_cuda.launches = trunk_cuda.launches = trunk_cuda.bwd_launches = 0
-    trunk_cuda.launches_by_batch.clear()
+    precision = PRECISION[cfg.policy_dtype]
+    reset_counts()
     metrics, update_ms = [], []
     for _ in range(updates):
         (state, m), ms = timed(lambda: tr.train_step(state), device)
         metrics.append(m)
         update_ms.append(ms)
     robots, mb = cfg.n_arenas * tr.spec.n_robots, cfg.ppo.batch_size
-    launches = {("lidar_obs", robots): lidar_cuda.launches,
-                **{("twin_trunks", b): n for b, n in
-                   trunk_cuda.launches_by_batch.items()},
-                ("twin_trunks_grads", mb): trunk_cuda.bwd_launches}
+    launches = read_counts(robots)
 
     steps = metrics[0]["env_steps"]
     keys = ("policy_loss", "value_loss", "entropy", "episodes", "reached",
@@ -739,18 +944,22 @@ def run_training(device, card: str, cfg, params, updates: int,
         tag = "warm-up" if i == 0 else f"timed {i}"
         rate = "" if ms is None else (f"; {ms:.1f} ms, "
                                       f"{steps / ms * 1e3:.1f} robot-steps/s")
-        print(f"training: {cfg.world}: update {i + 1} ({tag}): "
+        print(f"training: {cfg.world} ({precision}): update {i + 1} ({tag}): "
               + ", ".join(f"{k} {m[k]:.6g}" for k in keys) + rate, flush=True)
     (_, traj, last_value), rollout_ms = timed(lambda: tr._rollout(state),
                                               device)
     steps_per_update = steps // mb * cfg.ppo.epochs
-    print(f"training: {cfg.world}: {cfg.n_arenas} arenas x "
+    print(f"training: {cfg.world} ({precision}, scans "
+          f"{traj['scans'].dtype}): {cfg.n_arenas} arenas x "
           f"{tr.spec.n_robots} robots x horizon {cfg.horizon} = {steps} "
-          f"samples/update, {steps_per_update} PPO steps of {mb}; kernel "
-          f"launches (name, batch): {launches}", flush=True)
+          f"samples/update, {steps_per_update} PPO steps of {mb}; rollout "
+          f"buffer scans {traj['scans'].numel() * traj['scans'].element_size()}"
+          f" bytes; kernel launches (name, batch, precision): {launches}",
+          flush=True)
     if device.type == "cuda" and updates > 1:
         best = min(update_ms[1:])
-        print(f"training: {cfg.world}: best timed update {best:.1f} ms = "
+        print(f"training: {cfg.world} ({precision}): best timed update "
+              f"{best:.1f} ms = "
               f"{1e3 / best:.3f} updates/s, {steps / best * 1e3:.1f} "
               f"robot-steps/s (CUDA events); a rollout alone "
               f"{rollout_ms:.1f} ms, so PPO ~{best - rollout_ms:.1f} ms; on "
@@ -767,16 +976,18 @@ def run_training(device, card: str, cfg, params, updates: int,
     # the rollout's horizon acting steps and its bootstrap at one arena
     # batch each, one forward and one backward for each PPO minibatch
     if device.type == "cuda" and launches != {
-            ("lidar_obs", robots): updates * cfg.horizon,
-            ("twin_trunks", robots): updates * (cfg.horizon + 1),
-            ("twin_trunks", mb): updates * steps_per_update,
-            ("twin_trunks_grads", mb): updates * steps_per_update}:
+            ("lidar_obs", robots, "float32"): updates * cfg.horizon,
+            ("twin_trunks", robots, precision): updates * (cfg.horizon + 1),
+            ("twin_trunks", mb, precision): updates * steps_per_update,
+            ("twin_trunks_grads", mb, precision):
+                updates * steps_per_update}:
         raise AssertionError(f"a kernel of the training path did not run as "
                              f"often as it should: {launches}")
     goal = sum(m["reached"] for m in metrics)
     ended = sum(m["episodes"] for m in metrics)
     share = goal / ended if ended else 0.0
-    print(f"training: {cfg.world}: goal share {share:.3f} of {ended:.0f} "
+    print(f"training: {cfg.world} ({precision}): goal share {share:.3f} of "
+          f"{ended:.0f} "
           f"ended episodes", flush=True)
     if min_goal is not None and (ended == 0 or share < min_goal):
         raise AssertionError(f"the warm-started policy reached the goal in "
@@ -785,14 +996,15 @@ def run_training(device, card: str, cfg, params, updates: int,
     return launches, tr, state
 
 
-def conv_pieces(scans, act, crt, kernel: bool):
+def conv_pieces(scans, act, crt, kernel: bool, precision: str = "float32"):
     """(2, B, 3 * 4,096) booleans: per trunk and sample, which conv2 ReLUs
     and which conv1 ReLUs (even positions, then odd) pass.  ``kernel``: as
     the kernels compute them, read through the forward kernel with selector
     weights: fc1 rows of the identity pass 256 of the 4,096 conv2 features
     unchanged, conv2 taps of the identity pass conv1's even or odd
     positions (exact in float32: one product by 1, the rest sums of
-    zeros).  Otherwise as the plain trunks compute them."""
+    zeros; in bf16 too, and rounding keeps the sign).  Otherwise as the
+    plain trunks compute them."""
     import torch
     import torch.nn.functional as F
 
@@ -804,10 +1016,17 @@ def conv_pieces(scans, act, crt, kernel: bool):
     zero = torch.zeros(32, device=dev)
     if not kernel:
         out = []
+        r = trunk_cuda.round_bf16
         with trunk_cuda.exact_float32():
             for w1, b1, w2, b2, _, _ in (act, crt):
-                y1 = F.relu(F.conv1d(scans, w1, b1, stride=2, padding=1))
-                y2 = F.relu(F.conv1d(y1, w2, b2, stride=2, padding=1))
+                if precision == "bf16":
+                    y1 = F.relu(F.conv1d(r(scans.float()), r(w1), stride=2,
+                                         padding=1) + b1[:, None])
+                    y2 = F.relu(F.conv1d(r(y1), r(w2), stride=2, padding=1)
+                                + b2[:, None])
+                else:
+                    y1 = F.relu(F.conv1d(scans, w1, b1, stride=2, padding=1))
+                    y2 = F.relu(F.conv1d(y1, w2, b2, stride=2, padding=1))
                 odd = F.pad(y1, (1, 0))[:, :, 0::2]     # y1[c, 2m - 1]
                 out.append(torch.cat([y2.flatten(1), y1[:, :, 0::2].flatten(1),
                                       odd.flatten(1)], dim=-1) > 0)
@@ -819,7 +1038,7 @@ def conv_pieces(scans, act, crt, kernel: bool):
     def flat(conv2_act, conv2_crt):
         return torch.cat([trunk_cuda.twin_trunks(
             scans, (*act[:2], *conv2_act, eye[lo:lo + 256], fc0),
-            (*crt[:2], *conv2_crt, eye[lo:lo + 256], fc0))
+            (*crt[:2], *conv2_crt, eye[lo:lo + 256], fc0), precision)
             for lo in range(0, nflat, 256)], dim=-1) > 0
 
     return torch.cat([flat(act[2:4], crt[2:4]),
@@ -832,18 +1051,24 @@ def branch_pieces(policy, feats, conv, mb, clip):
     (2, B, 256) trunk features ``feats`` and the conv ReLUs ``conv``
     (conv_pieces): by kind, (B, n) booleans of the conv and fc1 ReLUs of
     both trunks, the fc2 ReLUs of both heads and the ratio against the
-    clip."""
+    clip; for a bf16 policy also the value and mean, whose bf16 roundings
+    are pieces too (BF16_FLIP_SHARE)."""
     import torch
 
     from rl_collision_avoidance_torch.models import distributions
 
-    gs = torch.cat([mb.goal, mb.speed], dim=-1)
-    fc2 = torch.cat([policy.act_fc2(torch.cat([feats[0], gs], dim=-1)),
-                     policy.crt_fc2(torch.cat([feats[1], gs], dim=-1))], -1)
-    _, mean, logstd = policy.heads(feats, mb.goal, mb.speed)
+    dt = policy.dtype
+    gs = torch.cat([mb.goal, mb.speed], dim=-1).to(dt)
+    fc2 = torch.cat([
+        policy.dense(torch.cat([feats[0].to(dt), gs], dim=-1), policy.act_fc2),
+        policy.dense(torch.cat([feats[1].to(dt), gs], dim=-1),
+                     policy.crt_fc2)], -1)
+    value, mean, logstd = policy.heads(feats, mb.goal, mb.speed)
     ratio = torch.exp(distributions.log_normal_density(mb.action, mean,
                                                        logstd) - mb.logprob)
-    return {"conv": torch.cat([conv[0], conv[1]], dim=-1),
+    rounded = ({} if dt == torch.float32
+               else {"out": torch.cat([value, mean], dim=-1)})
+    return {**rounded, "conv": torch.cat([conv[0], conv[1]], dim=-1),
             "fc1": torch.cat([feats[0] > 0, feats[1] > 0], dim=-1),
             "fc2": fc2 > 0,
             "clip": torch.cat([ratio < 1 - clip, ratio > 1 + clip], dim=-1)}
@@ -879,13 +1104,16 @@ def compare_minibatch_grads(tr, state, traj, last_value, f64: bool):
     through the kernels (TwinTrunks) against autograd through the plain
     trunks, on the samples where both take the same pieces (see
     MAX_FLIP_SHARE); with ``f64``, a leaf that misses that rule against the
-    float64 plain path (see float64_grads)."""
+    float64 plain path (see float64_grads).  A bf16 policy's plain path is
+    the plain bf16 trunks and the same bf16 tail."""
     import torch
 
     from rl_collision_avoidance_torch.algo.ppo import Batch, ppo_loss
+    from rl_collision_avoidance_torch.models.policy import PRECISION
     from rl_collision_avoidance_torch.ops import trunk_cuda
 
     cfg, policy = tr.cfg.ppo, state.policy
+    precision = PRECISION[policy.dtype]
     batch = tr._batch(traj, last_value)
     params = list(policy.parameters())
     act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
@@ -893,13 +1121,14 @@ def compare_minibatch_grads(tr, state, traj, last_value, f64: bool):
     def plain(model):
         a, c = model.trunk_weights("act"), model.trunk_weights("crt")
         return lambda s, g, sp: model.heads(
-            trunk_cuda.twin_trunks_plain(s, a, c), g, sp)
+            trunk_cuda.twin_trunks_plain(s, a, c, precision), g, sp)
 
     def grads(mb):
-        got = torch.autograd.grad(ppo_loss(policy, mb, cfg)[0], params)
-        with trunk_cuda.exact_float32():
-            want = torch.autograd.grad(ppo_loss(plain(policy), mb, cfg)[0],
-                                       params)
+        with float32_sums():
+            got = torch.autograd.grad(ppo_loss(policy, mb, cfg)[0], params)
+            with trunk_cuda.exact_float32():
+                want = torch.autograd.grad(
+                    ppo_loss(plain(policy), mb, cfg)[0], params)
         return got, want
 
     rel = lambda a, b: float((a.double() - b.double()).norm()
@@ -912,11 +1141,12 @@ def compare_minibatch_grads(tr, state, traj, last_value, f64: bool):
                              device=tr.device)[:cfg.batch_size]
         mb = Batch(*(x[idx] for x in batch))
         with torch.no_grad():
-            feats_k = trunk_cuda.twin_trunks(mb.scans, act, crt)
-            conv_k = conv_pieces(mb.scans, act, crt, kernel=True)
+            feats_k = trunk_cuda.twin_trunks(mb.scans, act, crt, precision)
+            conv_k = conv_pieces(mb.scans, act, crt, True, precision)
             with trunk_cuda.exact_float32():
-                feats_p = trunk_cuda.twin_trunks_plain(mb.scans, act, crt)
-                conv_p = conv_pieces(mb.scans, act, crt, kernel=False)
+                feats_p = trunk_cuda.twin_trunks_plain(mb.scans, act, crt,
+                                                       precision)
+                conv_p = conv_pieces(mb.scans, act, crt, False, precision)
                 pk = branch_pieces(policy, feats_k, conv_k, mb,
                                    cfg.clip_value)
                 pp = branch_pieces(policy, feats_p, conv_p, mb,
@@ -939,8 +1169,21 @@ def compare_minibatch_grads(tr, state, traj, last_value, f64: bool):
         kept = mb._replace(weight=mb.weight * ~flipped)
         got, want = grads(kept) if n_flip else (got, want)
         exact, misses, worst = None, [], {"el": 0.0, "norm": 0.0}
+        bf16_worst = 0.0
         for name, a, b in zip(names, got, want):
             el, nrm = peak(a, b), rel(a, b)
+            if precision == "bf16" and not name.startswith(TRUNK_LEAVES):
+                ulp = (a - b).abs() <= torch.clamp(BF16_ULP * b.abs(),
+                                                   min=GRAD_ATOL
+                                                   * float(b.abs().max()))
+                if not (bool(ulp.all()) and nrm <= BF16_ULP):
+                    raise AssertionError(
+                        f"minibatch {trial}: bf16 gradient of {name} through "
+                        f"the kernels differs from the plain path's by more "
+                        f"than one ulp ({int((~ulp).sum())} elements) or "
+                        f"{nrm:.3g} > {BF16_ULP} in relative 2-norm")
+                bf16_worst = max(bf16_worst, nrm)
+                continue
             worst = {"el": max(worst["el"], el),
                      "norm": max(worst["norm"], nrm)}
             if el <= GRAD_ATOL and nrm <= GRAD_NORM:
@@ -975,14 +1218,16 @@ def compare_minibatch_grads(tr, state, traj, last_value, f64: bool):
                                                  kept.speed)[0] - kept.target)
         kinds = ", ".join(f"{k} {int(v.sum())}" for k, v in flips.items())
         leaves = " and ".join(f"{n} {v:.3g}" for n, v in with_them.values())
-        print(f"training: {tr.cfg.world}: minibatch {trial} of "
+        print(f"training: {tr.cfg.world} ({precision}): minibatch {trial} of "
               f"{cfg.batch_size}: {n_flip} samples take other pieces on the "
               f"two paths ({kinds}; limit "
               f"{MAX_FLIP_SHARE * cfg.batch_size:.0f}); with them the worst "
               f"leaves in relative 2-norm are {leaves}; "
               f"without them, kernels vs the plain path: worst leaf "
               f"{worst['el']:.3g} of its largest value (limit {GRAD_ATOL}), "
-              f"{worst['norm']:.3g} in relative 2-norm (limit {GRAD_NORM}); "
+              f"{worst['norm']:.3g} in relative 2-norm (limit {GRAD_NORM})"
+              + (f", the bf16 tail's leaves {bf16_worst:.3g} (limit "
+                 f"{BF16_ULP})" if precision == "bf16" else "") + "; "
               f"value residual |sum| / sum|.| = "
               f"{float(res.sum().abs() / res.abs().sum()):.3g}; leaves held "
               f"to float64: {misses or 'none'}", flush=True)
@@ -999,13 +1244,11 @@ def run_circle(device, card: str, arenas: int, noise: float):
 
     from rl_collision_avoidance_torch.eval import run_circle_eval
     from rl_collision_avoidance_torch.models import load_policy
-    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
 
     policy = load_policy(CIRCLE_PARAMS, device=device)
     committed = json.loads((ROOT / "results" / "circle_eval.json").read_text())
     committed = committed["jitter_0.1m" if noise else "deterministic"]
-    lidar_cuda.launches = trunk_cuda.launches = 0
-    trunk_cuda.launches_by_batch.clear()
+    reset_counts()
     t0 = time.perf_counter()
     metrics = run_circle_eval(policy, max_steps=EVAL_STEPS, seed=SEED,
                               n_arenas=arenas, pose_noise=noise)
@@ -1013,10 +1256,8 @@ def run_circle(device, card: str, arenas: int, noise: float):
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     robots = arenas * 50
-    launches = {("lidar_obs", robots): lidar_cuda.launches,
-                **{("twin_trunks", b): n for b, n in
-                   trunk_cuda.launches_by_batch.items()}}
-    steps = trunk_cuda.launches_by_batch[robots]    # one forward a step
+    launches = read_counts(robots)
+    steps = launches[("twin_trunks", robots, "float32")]   # one a step
     print(f"circle eval: {arenas} arena(s) at {noise} m: port (card) "
           f"{json.dumps(metrics)}", flush=True)
     print(f"circle eval: {arenas} arena(s) at {noise} m: committed (TPU, "
@@ -1024,10 +1265,11 @@ def run_circle(device, card: str, arenas: int, noise: float):
     print(f"circle eval: {steps} steps of {robots} robots in {wall:.2f} s "
           f"wall = {robots * steps / wall:.1f} robot-steps/s (all robots had "
           f"a result by step {steps}, or the limit); kernel launches (name, "
-          f"batch): {launches} [{card}]", flush=True)
-    if device.type == "cuda" and not (launches[("lidar_obs", robots)]
-            and set(launches) == {("lidar_obs", robots),
-                                  ("twin_trunks", robots)}):
+          f"batch, precision): {launches} [{card}]", flush=True)
+    if device.type == "cuda" and not (
+            launches[("lidar_obs", robots, "float32")]
+            and set(launches) == {("lidar_obs", robots, "float32"),
+                                  ("twin_trunks", robots, "float32")}):
         raise AssertionError(f"a kernel of the eval never ran, or ran at "
                              f"another batch: {launches}")
     if arenas > 1 and not metrics["success_rate_mean"] >= EVAL_MIN_SUCCESS:
@@ -1118,13 +1360,26 @@ def main() -> int:
               check_trunk(device, "circle_train",
                           FT_ARENAS * n["circle_train"]),
               check_trunk(device, "circle_train", ft.ppo.batch_size),
-              check_trunk_bwd(device, "circle_train", ft.ppo.batch_size)]
+              check_trunk_bwd(device, "circle_train", ft.ppo.batch_size),
+              check_trunk(device, "stage1", ARENAS * n["stage1"], "bf16"),
+              check_trunk(device, "stage1", TRAIN_ARENAS * n["stage1"],
+                          "bf16"),
+              check_trunk(device, "stage1", BWD_BATCH, "bf16"),
+              check_trunk_bwd(device, "stage1", BWD_BATCH, "bf16")]
     pass_times(device)
-    records = {(r["name"], r["world"], r["batch"]): r for r in checks}
+    records = {(r["name"], r["world"], r["batch"], r["precision"]): r
+               for r in checks}
     s1 = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED)
+    s1_bf16 = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED,
+                                 policy_dtype=torch.bfloat16,
+                                 obs_store_dtype=torch.bfloat16)
     paths = [("acting", "stage1", run_slice(device, label)),
              ("training", "stage1", phase("stage-1 training slice")(
                  run_training)(device, label, s1, PARAMS,
+                               1 + TRAIN_UPDATES, 0.5)[0]),
+             ("acting, bf16", "stage1", run_slice(device, label, bf16=True)),
+             ("training, bf16", "stage1", phase("stage-1 bf16 training")(
+                 run_training)(device, label, s1_bf16, PARAMS,
                                1 + TRAIN_UPDATES, 0.5)[0]),
              ("circle eval, 1 arena", "circle",
               run_circle(device, label, 1, 0.0)),
@@ -1138,13 +1393,15 @@ def main() -> int:
     paths.append(("circle fine-tune", "circle_train", phase(
         "circle fine-tune")(run_training)(device, label, ft, CIRCLE_PARAMS, 1,
                                           None, f64=True)[0]))
-    keys = ("name", "path", "world", "batch", "route", "source", "replaces",
-            "launches", "max_abs_err", "ms", "host_us", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
-    kernels = [{**records[(name, world, b)], "path": path, "launches": k}
+    keys = ("name", "path", "world", "batch", "precision", "route", "source",
+            "replaces", "launches", "max_abs_err", "ms", "host_us",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{**records[(name, world, b, prec)], "path": path,
+                "launches": k}
                for path, world, launches in paths
-               for (name, b), k in launches.items()]
-    if {(k["name"], k["world"], k["batch"]) for k in kernels} != set(records):
+               for (name, b, prec), k in launches.items()]
+    if {(k["name"], k["world"], k["batch"], k["precision"])
+            for k in kernels} != set(records):
         raise AssertionError("a checked shape is not on a path, or a path's "
                              "shape was not checked")
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -10,9 +10,13 @@ card's name and power limit.  ``--profile`` instead traces a window with
 torch.profiler and prints where the device time goes and the device's idle
 share of the window: by kernel for acting, by phase of the update (rollout,
 GAE, PPO forward, trunk backward kernel, the rest of autograd, Adam) for
-training.  Usage::
+training.  ``--bf16`` runs the policy in bf16 (the trunk kernels' bf16
+mode) and ``--obs-bf16`` stores the scans in bf16, as the JAX bench's
+flags do; ``--f32`` forces both off.  Unlike the JAX acting bench, whose
+default is bf16, both modes here default to float32.  Usage::
 
     python -m rl_collision_avoidance_torch.bench --arenas 128 --steps 256
+    python -m rl_collision_avoidance_torch.bench --bf16 --obs-bf16
     python -m rl_collision_avoidance_torch.bench --profile --steps 20
     python -m rl_collision_avoidance_torch.bench --train [--profile] --arenas 32
     python -m rl_collision_avoidance_torch.bench --train --profile \
@@ -74,12 +78,19 @@ def run_acting(env: Env, policy: CNNPolicy, state: EnvState, obs: Obs,
                         "finite": finite}
 
 
-def _warm_start(arenas, warmup, world, params, seed):
+def _mode(policy_dtype, obs_dtype) -> dict:
+    return {"policy_dtype": str(policy_dtype).removeprefix("torch."),
+            "obs_dtype": str(obs_dtype or torch.float32).removeprefix(
+                "torch.")}
+
+
+def _warm_start(arenas, warmup, world, params, seed, policy_dtype,
+                obs_dtype):
     """Env, policy and sampler on the card, after ``warmup`` acting steps."""
     spec = get_world(world)
-    env = Env(spec, seed=seed)
+    env = Env(spec, seed=seed, obs_dtype=obs_dtype)
     policy = load_policy(params, device=env.device, frames=spec.laser_frames,
-                         beams=spec.n_beams)
+                         beams=spec.n_beams, dtype=policy_dtype)
     gen = torch.Generator(device=env.device)
     gen.manual_seed(seed + 1)
     state, obs = env.reset(arenas)
@@ -89,10 +100,11 @@ def _warm_start(arenas, warmup, world, params, seed):
 
 def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
             world: str = "stage1", params: str = DEFAULT_PARAMS,
-            seed: int = 0) -> dict:
+            seed: int = 0, policy_dtype: torch.dtype = torch.float32,
+            obs_dtype: torch.dtype | None = None) -> dict:
     """Robot-steps/s of the acting loop on the CUDA card."""
     env, policy, gen, state, obs = _warm_start(arenas, warmup, world, params,
-                                               seed)
+                                               seed, policy_dtype, obs_dtype)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -102,6 +114,7 @@ def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
     seconds = start.elapsed_time(end) / 1e3
     robots = arenas * env.n_robots
     return {"metric": "acting robot-steps/s", "world": world,
+            **_mode(policy_dtype, obs_dtype),
             "arenas": arenas, "robots": robots, "steps": steps,
             "value": robots * steps / seconds,
             "ms_per_step": seconds * 1e3 / steps,
@@ -114,14 +127,15 @@ def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
 
 def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
             world: str = "stage1", params: str = DEFAULT_PARAMS,
-            seed: int = 0) -> dict:
+            seed: int = 0, policy_dtype: torch.dtype = torch.float32,
+            obs_dtype: torch.dtype | None = None) -> dict:
     """Device time by kernel over ``steps`` acting steps (torch.profiler),
     and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     env, policy, gen, state, obs = _warm_start(arenas, warmup, world, params,
-                                               seed)
+                                               seed, policy_dtype, obs_dtype)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -140,7 +154,8 @@ def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
             launches += 1
     busy_ms = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    return {"world": world, "arenas": arenas, "steps": steps,
+    return {"world": world, **_mode(policy_dtype, obs_dtype),
+            "arenas": arenas, "steps": steps,
             "ms_per_step": window_ms / steps,
             "device_ms_per_step": busy_ms / steps,
             "device_idle_share": 1.0 - busy_ms / window_ms,
@@ -150,21 +165,24 @@ def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
             "card": card_label()}
 
 
-def _trainer(arenas: int, world: str, seed: int):
+def _trainer(arenas: int, world: str, seed: int, policy_dtype, obs_dtype):
     """A trainer on the card with the world's preset
     (``TrainConfig.for_world``) and its state after one warm-up update
     (random init, as the JAX package's ``measure_training``)."""
-    trainer = Trainer(TrainConfig.for_world(world, n_arenas=arenas,
-                                            seed=seed))
+    trainer = Trainer(TrainConfig.for_world(
+        world, n_arenas=arenas, seed=seed, policy_dtype=policy_dtype,
+        obs_store_dtype=obs_dtype))
     state, _ = trainer.train_step(trainer.init_state())
     return trainer, state
 
 
 def measure_training(arenas: int = 32, repeats: int = 3,
-                     world: str = "stage1", seed: int = 0) -> dict:
+                     world: str = "stage1", seed: int = 0,
+                     policy_dtype: torch.dtype = torch.float32,
+                     obs_dtype: torch.dtype | None = None) -> dict:
     """Training robot-steps/s: the best of ``repeats`` updates (rollout +
     GAE + PPO), each timed with CUDA events."""
-    trainer, state = _trainer(arenas, world, seed)
+    trainer, state = _trainer(arenas, world, seed, policy_dtype, obs_dtype)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
@@ -176,6 +194,7 @@ def measure_training(arenas: int = 32, repeats: int = 3,
         times.append(start.elapsed_time(end))
     steps = metrics["env_steps"]
     return {"metric": "training_steps_per_s", "world": world,
+            **_mode(policy_dtype, obs_dtype),
             "value": steps / min(times) * 1e3, "unit": "robot-steps/s",
             "arenas": arenas, "env_steps_per_update": steps,
             "update_ms": times, "device": torch.cuda.get_device_name(),
@@ -189,7 +208,8 @@ TRAIN_PHASES = ("rollout", "gae", "ppo_forward", "twin_trunks_grads", "adam")
 
 
 def profile_training(arenas: int = 32, world: str = "stage1",
-                     seed: int = 0) -> dict:
+                     seed: int = 0, policy_dtype: torch.dtype = torch.float32,
+                     obs_dtype: torch.dtype | None = None) -> dict:
     """Device ms of one traced update by phase, and the device's idle share
     of the update's wall time.
 
@@ -201,7 +221,7 @@ def profile_training(arenas: int = 32, world: str = "stage1",
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
-    trainer, state = _trainer(arenas, world, seed)
+    trainer, state = _trainer(arenas, world, seed, policy_dtype, obs_dtype)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -229,7 +249,8 @@ def profile_training(arenas: int = 32, world: str = "stage1",
         total, count = kernels.get(key, (0.0, 0))
         kernels[key] = (total + ms, count + 1)
     busy_ms = sum(phases.values())
-    return {"world": world, "arenas": arenas, "update_ms": window_ms,
+    return {"world": world, **_mode(policy_dtype, obs_dtype),
+            "arenas": arenas, "update_ms": window_ms,
             "device_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / window_ms,
             "phase_device_ms": phases, "device_ops": len(ops),
             "top_kernels_ms_launches": dict(sorted(
@@ -237,7 +258,16 @@ def profile_training(arenas: int = 32, world: str = "stage1",
             "device": torch.cuda.get_device_name(), "card": card_label()}
 
 
-def main(argv=None):
+def precision(args) -> tuple[torch.dtype, torch.dtype | None]:
+    """(policy dtype, obs dtype) of the parsed flags: float32 and None
+    unless ``--bf16`` / ``--obs-bf16``; ``--f32`` forces both off."""
+    bf16 = args.bf16 and not args.f32
+    obs_bf16 = args.obs_bf16 and not args.f32
+    return (torch.bfloat16 if bf16 else torch.float32,
+            torch.bfloat16 if obs_bf16 else None)
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arenas", type=int, default=None,
                     help="arenas (default 128 acting, 32 training)")
@@ -255,17 +285,32 @@ def main(argv=None):
                          "defaults to 32")
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed updates with --train (the best is reported)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 policy activations and products (the "
+                         "trunk kernels' bf16 mode); float32 params")
+    ap.add_argument("--obs-bf16", action="store_true",
+                    help="store the lidar frames as bfloat16 (acting: the "
+                         "env's scan history; training: also the rollout "
+                         "buffer)")
+    ap.add_argument("--f32", action="store_true",
+                    help="force the float32 configuration (the default)")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    dtypes = precision(args)
     if args.train:
         arenas = args.arenas or 32
-        out = (profile_training(arenas, args.world, args.seed) if args.profile
+        out = (profile_training(arenas, args.world, args.seed, *dtypes)
+               if args.profile
                else measure_training(arenas, args.repeats, args.world,
-                                     args.seed))
+                                     args.seed, *dtypes))
         print(out.pop("card"))
     else:
         run = profile if args.profile else measure
         out = run(args.arenas or 128, args.steps, args.warmup, args.world,
-                  args.params, args.seed)
+                  args.params, args.seed, *dtypes)
     print(json.dumps(out))
 
 

@@ -14,7 +14,8 @@ training commands log through ``utils/metrics.MetricLogger`` into
 ``--log-dir`` (default ``log/<hostname>``) and write the final params there
 as a JAX-format npz named after the stage (``--out`` to put it elsewhere),
 which ``--warm-start`` and the JAX package's ``load_params_npz`` both read.
-With ``--checkpoint-dir`` they save the full train state every 20 updates
+``--bf16`` and ``--obs-bf16`` select the mixed precision of the JAX
+command's flags of the same names.  With ``--checkpoint-dir`` they save the full train state every 20 updates
 under ``<dir>/<stage>`` and ``--resume`` continues from the newest one
 (unlike the JAX command, no full-state checkpoint is written by default).
 ``circle-test`` prints its metrics as one JSON line, as the JAX command
@@ -63,6 +64,14 @@ def _add_train(p):
     p.add_argument("--out", type=str, default=None,
                    help="where to write the final params npz (default: "
                         "<log dir>/<stage>_params.npz)")
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed-precision training: bfloat16 policy "
+                        "activations and products (the trunk kernels' bf16 "
+                        "mode), float32 params and Adam state")
+    p.add_argument("--obs-bf16", action="store_true",
+                   help="store the lidar scan history and the rollout "
+                        "buffer's scans in bfloat16 (halves the largest "
+                        "training tensor; ~1-2 mm quantization at 6 m)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
 
@@ -83,24 +92,34 @@ def _add_circle(p):
                    help="torch device (default: the CUDA card)")
 
 
-def train(stage: str, args) -> str:
-    """Run the training ``stage`` ("stage1", "stage2" or "circle_ft") as
-    ``args`` say; returns the params npz path."""
-    from .train import Trainer
+def train_config(stage: str, args):
+    """The ``TrainConfig`` of the training ``stage`` ("stage1", "stage2" or
+    "circle_ft") as ``args`` say."""
     from .train.trainer import PRESETS
-    from .utils.checkpoint import CheckpointManager
-    from .utils.metrics import MetricLogger
-    from .utils.params import (jax_params_to_torch, load_jax_npz,
-                               save_params_npz, torch_to_jax_params)
 
-    cfg = PRESETS[stage](n_arenas=args.arenas, seed=args.seed,
-                         max_updates=args.updates)
+    cfg = PRESETS[stage](
+        n_arenas=args.arenas, seed=args.seed, max_updates=args.updates,
+        policy_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        obs_store_dtype=torch.bfloat16 if args.obs_bf16 else None)
     if args.world is not None:
         cfg.world = args.world
     if args.batch_size is not None:
         cfg.ppo = cfg.ppo._replace(batch_size=args.batch_size)
     if args.logstd_min is not None:
         cfg.ppo = cfg.ppo._replace(logstd_min=args.logstd_min)
+    return cfg
+
+
+def train(stage: str, args) -> str:
+    """Run the training ``stage`` ("stage1", "stage2" or "circle_ft") as
+    ``args`` say; returns the params npz path."""
+    from .train import Trainer
+    from .utils.checkpoint import CheckpointManager
+    from .utils.metrics import MetricLogger
+    from .utils.params import (jax_params_to_torch, load_jax_npz,
+                               save_params_npz, torch_to_jax_params)
+
+    cfg = train_config(stage, args)
     if args.resume and args.checkpoint_dir is None:
         raise SystemExit("--resume needs --checkpoint-dir")
     trainer = Trainer(cfg, device=args.device)
@@ -149,7 +168,7 @@ def circle_test(args) -> dict:
     return metrics
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="rl_collision_avoidance_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
     for cmd, what in (("train-stage1", "train stage 1 (random rink)"),
@@ -160,7 +179,11 @@ def main(argv=None):
         _add_train(sub.add_parser(cmd, help=what))
     _add_circle(sub.add_parser("circle-test",
                                help="50-robot circle-swap evaluation"))
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     if args.cmd == "circle-test":
         circle_test(args)
     else:

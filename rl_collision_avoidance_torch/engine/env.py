@@ -21,7 +21,11 @@ JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
 The lidar runs through ``ops/lidar_cuda.py::lidar_obs``: the hand-written
 kernel when the env lives on the CUDA card, its plain version on the CPU.
 ``use_kernels=False`` runs the plain versions on any device, as the
-reference the kernel path is held against.  Random draws come from the
+reference the kernel path is held against.  ``obs_dtype`` is the dtype
+the scan history is stored and emitted in (float32 by default;
+``torch.bfloat16`` halves the largest state tensor, as the JAX env's
+``obs_dtype``): the lidar and all the geometry stay float32, and each new
+frame is cast after the lidar.  Random draws come from the
 env's own ``torch.Generator``; ``reset`` and ``step`` also take an injected
 sample, so tests can feed both packages the same draws.
 """
@@ -91,13 +95,14 @@ class Env:
     unless ``device`` says otherwise)."""
 
     def __init__(self, spec: WorldSpec, device=None, seed: int = 0,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, obs_dtype: torch.dtype | None = None):
         if spec.footprint != "disc":
             raise NotImplementedError(
                 "the port runs the disc footprint; the rect footprint is "
                 "not ported yet")
         self.spec = spec
         self.device = resolve_device(device)
+        self.obs_dtype = obs_dtype or torch.float32
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.n_robots = spec.n_robots
@@ -137,12 +142,15 @@ class Env:
 
     def scan_obs(self, pose: torch.Tensor) -> torch.Tensor:
         """(A, N, 3) poses -> (A, N, obs_beams) normalized frame, range /
-        max_range - 0.5, after the optional sparse resample."""
+        max_range - 0.5, after the optional sparse resample, in
+        ``obs_dtype``."""
         t = self.lidar_table
         scan = self._scan(pose.contiguous(), self._lidar_cells, t.lo, t.cell,
                           t.shape, self.local_dirs, self.spec.robot_radius,
                           self.spec.max_range)
-        return scan if self._obs_idx is None else scan[..., self._obs_idx]
+        if self._obs_idx is not None:
+            scan = scan[..., self._obs_idx]
+        return scan.to(self.obs_dtype)
 
     def obs(self, state: EnvState) -> Obs:
         return Obs(scans=state.scan_hist, goal=local_goal(state.pose,

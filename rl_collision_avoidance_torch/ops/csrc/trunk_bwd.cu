@@ -32,6 +32,17 @@
 //   6. reduce: one warp per small-gradient element sums the blocks' partials
 //      (and, for dbf, the rows of g1) in a fixed order.
 //
+// Two modes, as the forward's (trunk_bf16.cuh).  In bf16 mode the cotangent
+// g is bf16, and every product operand is rounded to bf16 as the JAX
+// kernel's precision="default" rounds it: the scans, the weights, the
+// conv1 and flat activations (rounded where the conv pass makes them; the
+// flat features stay a float32 workspace holding bf16 values, since g2
+// overwrites them in place), and the cotangents g1 (bf16 already), g2 and
+// g3.  The bias gradients sum g1, g2 and g3 unrounded in float32, as the
+// JAX kernel's do, so conv_bwd sums each g2 element into db2 before it
+// rounds it in shared memory, and sums g3 into db1 beside the rounded
+// products of dW1.  The weight gradients are float32.
+//
 // The products run on trunk_gemm.cuh's core.  conv_bwd is register tiled
 // like the conv pass: dW2 is a product (32 x 96) with K = positions x
 // samples, a thread owning 8 output channels x 3 taps of one input channel;
@@ -46,6 +57,7 @@
 
 namespace {
 
+using trunk::bf16;
 using trunk::ceil_div;
 using trunk::ConvGeom;
 using trunk::kC;
@@ -61,6 +73,7 @@ struct Layout {
   int nw1, nw2, psize, off_wf, off_bf, total;
   int blocks;  // conv_bwd blocks per trunk
   int nchunk;  // position ranges of dW1 per (channel, frame)
+  int fc1_splits, dwf_splits;  // split-K ranges of the fc1 recompute, dWf
   int gs;      // floats per row of g2 in shared memory
   long long act, g1, partial, part, work;  // workspace offsets and size
 };
@@ -77,6 +90,8 @@ Layout layout(int batch, int frames, int beams, int conv_blocks, int fc1_splits,
   s.total = s.off_bf + kH;
   s.blocks = conv_blocks;
   s.nchunk = 8 / frames;
+  s.fc1_splits = fc1_splits;
+  s.dwf_splits = dwf_splits;
   s.gs = s.g.l2 + 4;
   s.act = 0;
   s.g1 = 2LL * batch * s.g.nflat;
@@ -116,9 +131,10 @@ __host__ __device__ inline BwdSmem bwd_smem(const Layout& s) {
 
 // Pass 5: per conv block and trunk, the sums over the block's samples
 // (trunk::block_samples) of dW1, db1, dW2 and db2, into
-// partial[t][block][0 : psize].
+// partial[t][block][0 : psize].  kRound: bf16 mode; TX: the scans' type.
+template <bool kRound, class TX>
 __global__ void __launch_bounds__(kConvThreads, 2)
-    conv_bwd_kernel(const float* __restrict__ x, Trunk act_w, Trunk crt_w,
+    conv_bwd_kernel(const TX* __restrict__ x, Trunk act_w, Trunk crt_w,
                     const float* __restrict__ g2, float* __restrict__ partial,
                     Layout s, int batch) {
   extern __shared__ __align__(16) float sh[];
@@ -133,8 +149,8 @@ __global__ void __launch_bounds__(kConvThreads, 2)
   float* xsm = sh + sm.x;
   float* y1 = sh + sm.y1;  // even rows, then odd rows; g3 in place
   float* gsm = sh + sm.g2;
-  trunk::stage_conv1_weights(p, w1t, b1, g.frames, tid);
-  trunk::stage_conv2_weights<false>(p, w2b, tid);
+  trunk::stage_conv1_weights<kRound>(p, w1t, b1, g.frames, tid);
+  trunk::stage_conv2_weights<false, kRound>(p, w2b, tid);
   trunk::zero_pads(xsm, y1, g, 1, tid);
   for (int i = tid; i < kC * 4; i += kConvThreads)
     gsm[(i >> 2) * s.gs + g.l2 + (i & 3)] = 0.0f;
@@ -173,11 +189,20 @@ __global__ void __launch_bounds__(kConvThreads, 2)
       trunk::cp_async16(gsm + c * s.gs + 4 * q, gb + 4 * i, true);
     }
     trunk::cp_async_commit();
-    trunk::load_x(x + static_cast<size_t>(b) * g.frames * g.beams, xsm, g, tid);
+    trunk::load_x<kRound>(x + static_cast<size_t>(b) * g.frames * g.beams,
+                          xsm, g, tid);
     trunk::cp_async_wait<0>();
     __syncthreads();
     for (int it = tid; it < g.half; it += kConvThreads)  // 4 x (half / 4) items
-      trunk::conv1_item(xsm, w1t, b1, y1, g, it / (g.half / 4), it % (g.half / 4));
+      trunk::conv1_item<kRound>(xsm, w1t, b1, y1, g, it / (g.half / 4),
+                                it % (g.half / 4));
+    // db2 from g2 as it came; then, in bf16 mode, the same elements rounded
+    // for the products (each (channel, position) is one thread's)
+    for (int m = m_lo; m < m_hi; ++m) {
+      const float v = gsm[bc * s.gs + m];
+      accb2 += v;
+      if (kRound) gsm[bc * s.gs + m] = trunk::round_bf16(v);
+    }
     __syncthreads();
 
     // dW2[c][ci][t] += sum_m g2[c][m] conv1[ci][2m + t - 1]
@@ -201,7 +226,6 @@ __global__ void __launch_bounds__(kConvThreads, 2)
             for (int t = 0; t < 3; ++t) acc2[c][t] = fmaf(gv[j], yv[t][j], acc2[c][t]);
         }
       }
-      for (int m = m_lo; m < m_hi; ++m) accb2 += gsm[bc * s.gs + m];
     }
     __syncthreads();
 
@@ -261,6 +285,9 @@ __global__ void __launch_bounds__(kConvThreads, 2)
         const float4 o4 = *reinterpret_cast<const float4*>(go + l0 / 2);
         const float gl[8] = {e4.x, o4.y, e4.y, o4.z, e4.z, o4.w, e4.w,
                              go[l0 / 2 + 4]};
+        float gr[8];  // g3 as a product operand
+#pragma unroll
+        for (int j = 0; j < 8; ++j) gr[j] = trunk::operand<kRound>(gl[j]);
         const float4 xe0 = *reinterpret_cast<const float4*>(xe + l0);
         const float4 xe1 = *reinterpret_cast<const float4*>(xe + l0 + 4);
         const float4 xo0 = *reinterpret_cast<const float4*>(xo + l0);
@@ -274,7 +301,7 @@ __global__ void __launch_bounds__(kConvThreads, 2)
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int t = 0; t < 5; ++t)
-            acc1[t] = fmaf(gl[j], (t & 1) ? ex[j + t / 2] : ox[j + t / 2], acc1[t]);
+            acc1[t] = fmaf(gr[j], (t & 1) ? ex[j + t / 2] : ox[j + t / 2], acc1[t]);
           if (f1 == 0) accb1 += gl[j];
         }
       }
@@ -346,48 +373,11 @@ __global__ void __launch_bounds__(kReduceThreads)
     grads[static_cast<size_t>(t) * total + (e < psize ? e : off_bf + e - psize)] = v;
 }
 
-}  // namespace
-
-// Floats of workspace that trunk_bwd_launch needs for this batch and plan.
-extern "C" long long trunk_bwd_workspace_floats(int batch, int frames,
-                                                int beams, int conv_blocks,
-                                                int fc1_splits,
-                                                int dwf_splits) {
-  return layout(batch, frames, beams, conv_blocks, fc1_splits, dwf_splits)
-      .work;
-}
-
-// x (B, F, NB) scans; w: the 12 weight pointers, actor trunk then critic
-// trunk, each in the order w1, b1, w2, b2, wf, bf of struct Trunk; g
-// (2, B, 256) feature cotangent; grads (2, total): per trunk the gradients of
-// w1, b1, w2, b2, wf, bf back to back, each in its weight's layout; work:
-// work_floats floats.  The plan: conv_blocks conv blocks per trunk (the
-// forward's; trunk_conv.cuh, block_samples), fc1_splits ranges of fc1's K
-// (the forward's), dwf_splits sample ranges of dWf.  Returns cudaErrorInvalidValue for shapes the
-// kernels do not take, a plan that leaves a range empty, or too little
-// workspace.
-extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
-                                const void* g, void* grads, void* work,
-                                long long work_floats, int batch, int frames,
-                                int beams, int conv_blocks, int fc1_splits,
-                                int dwf_splits, int device, void* stream) {
-  if (!trunk::conv_shapes_ok(frames, beams) || batch < 1 ||
-      conv_blocks < 1 || conv_blocks > ceil_div(batch, trunk::kFwdGroup) ||
-      fc1_splits < 1 || dwf_splits < 1)
-    return cudaErrorInvalidValue;
-  const Layout s = layout(batch, frames, beams, conv_blocks, fc1_splits,
-                          dwf_splits);
-  if (work_floats < s.work) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* const* f = reinterpret_cast<const float* const*>(w);
-  const Trunk tr[2] = {{f[0], f[1], f[2], f[3], f[4], f[5]},
-                       {f[6], f[7], f[8], f[9], f[10], f[11]}};
-  const float* xs = static_cast<const float*>(x);
-  const float* gg = static_cast<const float*>(g);
-  float* out = static_cast<float*>(grads);
-  float* ws = static_cast<float*>(work);
+// The six passes.  kRound: bf16 mode; TX, TG: the scans' and the
+// cotangent's types.
+template <bool kRound, class TX, class TG>
+cudaError_t backward(const TX* xs, const Trunk* tr, const TG* g, float* out,
+                     float* ws, const Layout& s, int batch, cudaStream_t st) {
   float* act = ws + s.act;          // (2, B, nflat), then g2 in place
   float* g1 = ws + s.g1;            // (2, B, 256)
   float* partial = ws + s.partial;  // (2, blocks, psize)
@@ -397,8 +387,8 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
   const size_t bh = static_cast<size_t>(batch) * kH;
 
   // 1. the flat conv features
-  err = trunk::launch_conv_fwd(xs, tr, act, batch, frames, beams,
-                               conv_blocks, st);
+  cudaError_t err = trunk::launch_conv_fwd<kRound>(
+      xs, tr, act, batch, s.g.frames, s.g.beams, s.blocks, st);
   if (err != cudaSuccess) return err;
 
   // 2. g1 = g [act Wf^T + bf > 0]: M = B, N = 256, K = nflat
@@ -408,13 +398,14 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
     p.b[t] = tr[t].wf;
     p.c[t] = g1 + t * bh;
     p.bias[t] = tr[t].bf;
-    p.aux[t] = gg + t * bh;
+    p.aux[t] = g + t * bh;
   }
   p.lda = nflat, p.ldb = nflat, p.ldc = kH, p.ldaux = kH;
   p.m = batch, p.n = kH, p.k = nflat;
-  p.part = part, p.splits = fc1_splits;
-  p.kchunk = ceil_div(ceil_div(nflat, trunk::kBK), fc1_splits);
-  err = trunk::run_gemm<true, true, trunk::kBiasReluGrad>(p, st);
+  p.part = part, p.splits = s.fc1_splits;
+  p.kchunk = ceil_div(ceil_div(nflat, trunk::kBK), s.fc1_splits);
+  err = trunk::run_gemm<true, true, trunk::kBiasReluGrad, float, float, TG,
+                        kRound>(p, st);
   if (err != cudaSuccess) return err;
 
   // 3. dWf = g1^T act: M = 256, N = nflat, K = B
@@ -426,8 +417,8 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
   }
   p.lda = kH, p.ldb = nflat, p.ldc = nflat;
   p.m = kH, p.n = nflat, p.k = batch;
-  p.part = part, p.splits = dwf_splits;
-  p.kchunk = ceil_div(ceil_div(batch, trunk::kBK), dwf_splits);
+  p.part = part, p.splits = s.dwf_splits;
+  p.kchunk = ceil_div(ceil_div(batch, trunk::kBK), s.dwf_splits);
   err = trunk::run_gemm<false, false, trunk::kStore>(p, st);
   if (err != cudaSuccess) return err;
 
@@ -442,16 +433,18 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
   p.lda = kH, p.ldb = nflat, p.ldc = nflat, p.ldaux = nflat;
   p.m = batch, p.n = nflat, p.k = kH;
   p.splits = 1, p.kchunk = kH / trunk::kBK;
-  err = trunk::run_gemm<true, false, trunk::kMaskPositive>(p, st);
+  err = trunk::run_gemm<true, false, trunk::kMaskPositive, float, float,
+                        float, kRound>(p, st);
   if (err != cudaSuccess) return err;
 
   // 5. per-block partial sums of dW1, db1, dW2, db2
   const size_t smem = sizeof(float) * bwd_smem(s).floats;
-  err = cudaFuncSetAttribute(conv_bwd_kernel,
+  auto conv_bwd = conv_bwd_kernel<kRound, TX>;
+  err = cudaFuncSetAttribute(conv_bwd,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  conv_bwd_kernel<<<dim3(s.blocks, 2), kConvThreads, smem, st>>>(
+  conv_bwd<<<dim3(s.blocks, 2), kConvThreads, smem, st>>>(
       xs, tr[0], tr[1], act, partial, s, batch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -462,4 +455,63 @@ extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
                                                    s.blocks, s.psize, s.off_bf,
                                                    s.total);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of workspace that trunk_bwd_launch needs for this batch and plan.
+extern "C" long long trunk_bwd_workspace_floats(int batch, int frames,
+                                                int beams, int conv_blocks,
+                                                int fc1_splits,
+                                                int dwf_splits) {
+  return layout(batch, frames, beams, conv_blocks, fc1_splits, dwf_splits)
+      .work;
+}
+
+// x (B, F, NB) scans, float32 or (x_bf16) bf16; w: the 12 float32 weight
+// pointers, actor trunk then critic trunk, each in the order w1, b1, w2, b2,
+// wf, bf of struct Trunk; g (2, B, 256) feature cotangent, float32 or
+// (bf16_mode) bf16; grads (2, total) float32: per trunk the gradients of
+// w1, b1, w2, b2, wf, bf back to back, each in its weight's layout; work:
+// work_floats floats.  The plan: conv_blocks conv blocks per trunk (the
+// forward's; trunk_conv.cuh, block_samples), fc1_splits ranges of fc1's K
+// (the forward's), dwf_splits sample ranges of dWf.  bf16_mode: the bf16
+// mode of trunk_bf16.cuh.  Returns cudaErrorInvalidValue for shapes the
+// kernels do not take, a plan that leaves a range empty, or too little
+// workspace.
+extern "C" int trunk_bwd_launch(const void* x, const void* const* w,
+                                const void* g, void* grads, void* work,
+                                long long work_floats, int batch, int frames,
+                                int beams, int conv_blocks, int fc1_splits,
+                                int dwf_splits, int x_bf16, int bf16_mode,
+                                int device, void* stream) {
+  if (!trunk::conv_shapes_ok(frames, beams) || batch < 1 ||
+      conv_blocks < 1 || conv_blocks > ceil_div(batch, trunk::kFwdGroup) ||
+      fc1_splits < 1 || dwf_splits < 1)
+    return cudaErrorInvalidValue;
+  const Layout s = layout(batch, frames, beams, conv_blocks, fc1_splits,
+                          dwf_splits);
+  if (work_floats < s.work) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* const* f = reinterpret_cast<const float* const*>(w);
+  const Trunk tr[2] = {{f[0], f[1], f[2], f[3], f[4], f[5]},
+                       {f[6], f[7], f[8], f[9], f[10], f[11]}};
+  float* out = static_cast<float*>(grads);
+  float* ws = static_cast<float*>(work);
+  const bool round = bf16_mode != 0;
+  if (x_bf16)
+    return round ? backward<true>(static_cast<const bf16*>(x), tr,
+                                  static_cast<const bf16*>(g), out, ws, s,
+                                  batch, st)
+                 : backward<false>(static_cast<const bf16*>(x), tr,
+                                   static_cast<const float*>(g), out, ws, s,
+                                   batch, st);
+  return round ? backward<true>(static_cast<const float*>(x), tr,
+                                static_cast<const bf16*>(g), out, ws, s,
+                                batch, st)
+               : backward<false>(static_cast<const float*>(x), tr,
+                                 static_cast<const float*>(g), out, ws, s,
+                                 batch, st);
 }

@@ -12,6 +12,15 @@
 // a thread reads its fragments as float4 and adds the k terms of each
 // output in order, k = 0, 1, ..., so a tile shape changes no rounding.
 //
+// Operand and output types (trunk_bf16.cuh): A may be bf16 in memory (TA;
+// k-contiguous only): its tiles land by cp.async in a ring of their own,
+// and once they have landed each thread widens the chunk it copied into
+// the float tile, before the barrier that lets the block read it, so the
+// FMA loop is the float32 one.  B is float32 and, in bf16 mode (kRoundB),
+// each thread rounds the chunks it copied to bf16 in place at the same
+// point.  C may be bf16 (TC), rounded from the float32 epilogue; the
+// epilogue's aux may be bf16 (TAux).
+//
 // Split-K: with splits > 1, block z = trunk * splits + s sums only the k
 // tiles [s * kchunk, (s + 1) * kchunk) and writes its plain sum to
 // part[trunk][s]; splitk_reduce then adds the partials in the order s = 0,
@@ -21,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include "trunk_bf16.cuh"
+
 namespace trunk {
 
 constexpr int kBM = 128, kBN = 128, kBK = 16;
@@ -28,7 +39,12 @@ constexpr int kStages = 3;
 constexpr int kGemmThreads = 256;        // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kPad = 4;                  // floats after each k-contiguous row
 constexpr int kTileFloats = kBM * (kBK + kPad);  // one operand, one stage
-constexpr int kGemmSmemBytes = 2 * kStages * kTileFloats * 4;
+
+// Shared memory of a product whose A is TA: the float ring of both
+// operands and, for a bf16 A, the ring its kBM x kBK tiles land in.
+template <class TA>
+constexpr int kGemmSmemBytes = 2 * kStages * kTileFloats * 4 +
+                               (sizeof(TA) == 2 ? kStages * kBM * kBK * 2 : 0);
 constexpr int kReduceThreads = 256;
 
 // kStore: the sum.  kBiasRelu: max(sum + bias[n], 0) (fc1 forward).
@@ -40,13 +56,14 @@ enum Epilogue { kStore = 0, kBiasRelu = 1, kBiasReluGrad = 2,
 
 // Per trunk t: element (m, k) of A at a[t][m * lda + k] when A is
 // k-contiguous, else at a[t][k * lda + m]; (k, n) of B at b[t][n * ldb + k]
-// when B is k-contiguous, else at b[t][k * ldb + n].
+// when B is k-contiguous, else at b[t][k * ldb + n].  a, c and aux point at
+// the run_gemm instance's TA, TC and TAux.
 struct Gemm {
-  const float* a[2];
+  const void* a[2];
   const float* b[2];
-  float* c[2];
+  void* c[2];
   const float* bias[2];
-  const float* aux[2];
+  const void* aux[2];
   long long lda, ldb, ldc, ldaux;
   int m, n, k;
   float* part;     // (2, splits, m, n) partial sums when splits > 1
@@ -55,14 +72,16 @@ struct Gemm {
 
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid.  The
 // #else branch is the synchronous equivalent for a host compiler.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
 #if defined(__CUDA_ARCH__)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(valid ? 16 : 0));
 #else
-  for (int i = 0; i < 4; ++i) dst[i] = valid ? src[i] : 0.0f;
+  float* f = static_cast<float*>(dst);
+  const float* g = static_cast<const float*>(src);
+  for (int i = 0; i < 4; ++i) f[i] = valid ? g[i] : 0.0f;
 #endif
 }
 
@@ -86,27 +105,65 @@ __device__ __forceinline__ int frag_index(int t, int i) {
 }
 
 // One operand's k tile [k0, k0 + kBK) x rows [r0, r0 + 128) into shared
-// memory: 512 chunks of 4 floats, two per thread.  Chunks outside the
-// operand (rows >= nrows, k >= nk) are zero-filled; the host guarantees that
-// a chunk is either wholly inside or wholly outside.
+// memory in 16-byte chunks: for float, 512 chunks of 4, two per thread; for
+// a (k-contiguous) bf16 operand, 256 chunks of 8, one per thread, as dense
+// rows of kBK (widen_tile makes them float rows).  Chunks outside the
+// operand (rows >= nrows, k >= nk) are zero-filled; the host guarantees
+// that a chunk is either wholly inside or wholly outside.
+template <bool kKContig, class T>
+__device__ __forceinline__ void load_tile(T* s, const T* g, long long ld,
+                                          int r0, int nrows, int k0, int nk,
+                                          int tid) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = tid + kGemmThreads * q;
+      if (kKContig) {
+        const int r = c >> 2, kq = (c & 3) * 4;
+        const bool ok = r0 + r < nrows && k0 + kq < nk;
+        cp_async16(s + r * (kBK + kPad) + kq,
+                   ok ? g + (r0 + r) * ld + k0 + kq : g, ok);
+      } else {
+        const int kk = c >> 5, rq = (c & 31) * 4;
+        const bool ok = k0 + kk < nk && r0 + rq < nrows;
+        cp_async16(s + kk * kBM + rq, ok ? g + (k0 + kk) * ld + r0 + rq : g,
+                   ok);
+      }
+    }
+  } else {
+    static_assert(kKContig, "a bf16 operand must be k-contiguous");
+    const int r = tid >> 1, kq = (tid & 1) * 8;
+    const bool ok = r0 + r < nrows && k0 + kq < nk;
+    cp_async16(s + r * kBK + kq, ok ? g + (r0 + r) * ld + k0 + kq : g, ok);
+  }
+}
+
+// The bf16 chunk load_tile copied for this thread from a k-contiguous tile
+// at raw, widened into the float tile at s (after it has landed).
+__device__ __forceinline__ void widen_tile(const bf16* raw, float* s,
+                                           int tid) {
+  const int r = tid >> 1, kq = (tid & 1) * 8;
+  const uint4 u = *reinterpret_cast<const uint4*>(raw + r * kBK + kq);
+  float* d = s + r * (kBK + kPad) + kq;
+  *reinterpret_cast<float4*>(d) =
+      make_float4(bf16_half<false>(u.x), bf16_half<true>(u.x),
+                  bf16_half<false>(u.y), bf16_half<true>(u.y));
+  *reinterpret_cast<float4*>(d + 4) =
+      make_float4(bf16_half<false>(u.z), bf16_half<true>(u.z),
+                  bf16_half<false>(u.w), bf16_half<true>(u.w));
+}
+
+// Round to bf16, in place, the float chunks load_tile copied for this
+// thread into the stage at s (after they have landed).
 template <bool kKContig>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          long long ld, int r0, int nrows,
-                                          int k0, int nk, int tid) {
+__device__ __forceinline__ void round_tile(float* s, int tid) {
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     const int c = tid + kGemmThreads * q;
-    if (kKContig) {
-      const int r = c >> 2, kq = (c & 3) * 4;
-      const bool ok = r0 + r < nrows && k0 + kq < nk;
-      cp_async16(s + r * (kBK + kPad) + kq,
-                 ok ? g + (r0 + r) * ld + k0 + kq : g, ok);
-    } else {
-      const int kk = c >> 5, rq = (c & 31) * 4;
-      const bool ok = k0 + kk < nk && r0 + rq < nrows;
-      cp_async16(s + kk * kBM + rq, ok ? g + (k0 + kk) * ld + r0 + rq : g,
-                 ok);
-    }
+    float* v = kKContig ? s + (c >> 2) * (kBK + kPad) + (c & 3) * 4
+                        : s + (c >> 5) * kBM + (c & 31) * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = round_bf16(v[i]);
   }
 }
 
@@ -117,26 +174,31 @@ __device__ __forceinline__ T pick(T const (&v)[2], int t) {
   return t == 0 ? v[0] : v[1];
 }
 
-template <int kEpi>
+template <class TAux>
+__device__ __forceinline__ float aux_at(const Gemm& p, int t, int m, int n) {
+  return to_float(static_cast<const TAux*>(pick(p.aux, t))[m * p.ldaux + n]);
+}
+
+template <int kEpi, class TAux>
 __device__ __forceinline__ float epilogue(const Gemm& p, int t, float v,
                                           int m, int n) {
   if (kEpi == kBiasRelu) return fmaxf(v + pick(p.bias, t)[n], 0.0f);
   if (kEpi == kBiasReluGrad)
-    return v + pick(p.bias, t)[n] > 0.0f ? pick(p.aux, t)[m * p.ldaux + n]
-                                         : 0.0f;
+    return v + pick(p.bias, t)[n] > 0.0f ? aux_at<TAux>(p, t, m, n) : 0.0f;
   if (kEpi == kMaskPositive)
-    return pick(p.aux, t)[m * p.ldaux + n] > 0.0f ? v : 0.0f;
+    return aux_at<TAux>(p, t, m, n) > 0.0f ? v : 0.0f;
   return v;
 }
 
 // Grid (n tiles, m tiles, 2 * splits).
-template <bool kAk, bool kBk, int kEpi>
+template <bool kAk, bool kBk, int kEpi, class TA, class TC, class TAux,
+          bool kRoundB>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
   static_assert(kAk || !kBk, "an m-contiguous A needs an n-contiguous B");
   extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.z / p.splits;
   const int split = blockIdx.z - t * p.splits;
-  const float* a = pick(p.a, t);
+  const TA* a = static_cast<const TA*>(pick(p.a, t));
   const float* b = pick(p.b, t);
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
@@ -154,9 +216,17 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
 
   auto stage_a = [&](int s) { return smem + s * 2 * kTileFloats; };
   auto stage_b = [&](int s) { return smem + s * 2 * kTileFloats + kTileFloats; };
+  // a bf16 A's own ring, after the float one
+  auto raw_a = [&](int s) {
+    return reinterpret_cast<TA*>(smem + 2 * kStages * kTileFloats) +
+           s * kBM * kBK;
+  };
   auto load = [&](int s, int kt) {
     const int k0 = (kt0 + kt) * kBK;
-    load_tile<kAk>(stage_a(s), a, p.lda, m0, p.m, k0, p.k, tid);
+    if constexpr (sizeof(TA) == 2)
+      load_tile<kAk>(raw_a(s), a, p.lda, m0, p.m, k0, p.k, tid);
+    else
+      load_tile<kAk>(stage_a(s), a, p.lda, m0, p.m, k0, p.k, tid);
     load_tile<kBk>(stage_b(s), b, p.ldb, n0, p.n, k0, p.k, tid);
   };
 
@@ -167,6 +237,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
   }
   for (int kt = 0; kt < nkt; ++kt) {
     cp_async_wait<kStages - 2>();
+    if constexpr (sizeof(TA) == 2)
+      widen_tile(raw_a(kt % kStages), stage_a(kt % kStages), tid);
+    if (kRoundB) round_tile<kBk>(stage_b(kt % kStages), tid);
     __syncthreads();
     // the stage refilled here was read in iteration kt - 1, which every
     // thread has finished at the barrier above
@@ -174,7 +247,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
     cp_async_commit();
     const float* as = stage_a(kt % kStages);
     const float* bs = stage_b(kt % kStages);
-    if (kAk) {
+    if constexpr (kAk) {
 #pragma unroll
       for (int kq = 0; kq < kBK; kq += 4) {
         if (kBk) {
@@ -256,13 +329,14 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
       if (p.splits > 1)
         part[static_cast<long long>(m) * p.n + n] = acc[i][j];
       else
-        pick(p.c, t)[m * p.ldc + n] = epilogue<kEpi>(p, t, acc[i][j], m, n);
+        static_cast<TC*>(pick(p.c, t))[m * p.ldc + n] =
+            from_float<TC>(epilogue<kEpi, TAux>(p, t, acc[i][j], m, n));
     }
   }
 }
 
 // C[t] = epilogue(part[t][0] + part[t][1] + ...), in that order.
-template <int kEpi>
+template <int kEpi, class TC, class TAux>
 __global__ void __launch_bounds__(kReduceThreads) splitk_reduce(Gemm p) {
   const int t = blockIdx.y;
   const long long mn = static_cast<long long>(p.m) * p.n;
@@ -274,7 +348,8 @@ __global__ void __launch_bounds__(kReduceThreads) splitk_reduce(Gemm p) {
     for (int s = 1; s < p.splits; ++s) v += part[s * mn + e];
     const int m = static_cast<int>(e / p.n);
     const int n = static_cast<int>(e - static_cast<long long>(m) * p.n);
-    pick(p.c, t)[m * p.ldc + n] = epilogue<kEpi>(p, t, v, m, n);
+    static_cast<TC*>(pick(p.c, t))[m * p.ldc + n] =
+        from_float<TC>(epilogue<kEpi, TAux>(p, t, v, m, n));
   }
 }
 
@@ -285,30 +360,35 @@ inline long long gemm_part_floats(int m, int n, int splits) {
 
 // Enqueue the product (and its split-K reduce).  The host checks what the
 // 16-byte copies need: a k-contiguous operand's k and leading dimension, an
-// m- or n-contiguous operand's rows and leading dimension, multiples of 4;
-// and that the splits cover the k tiles with none empty.
-template <bool kAk, bool kBk, int kEpi>
+// m- or n-contiguous operand's rows and leading dimension, multiples of 4
+// (8 for a bf16 A); and that the splits cover the k tiles with none empty.
+// TA, TC, TAux: A's, C's and the epilogue aux's types; kRoundB: round B to
+// bf16 (bf16 mode).
+template <bool kAk, bool kBk, int kEpi, class TA = float, class TC = float,
+          class TAux = float, bool kRoundB = false>
 cudaError_t run_gemm(const Gemm& p, cudaStream_t stream) {
   const int ktiles = (p.k + kBK - 1) / kBK;
+  const int per = 16 / static_cast<int>(sizeof(TA));
   const bool ok =
-      (kAk ? p.k % 4 == 0 : p.m % 4 == 0) && p.lda % 4 == 0 &&
+      (kAk ? p.k % per == 0 : p.m % per == 0) && p.lda % per == 0 &&
       (kBk ? p.k % 4 == 0 : p.n % 4 == 0) && p.ldb % 4 == 0 &&
       p.splits >= 1 && p.kchunk >= 1 &&
       static_cast<long long>(p.splits) * p.kchunk >= ktiles &&
       static_cast<long long>(p.splits - 1) * p.kchunk < ktiles &&
       (p.splits == 1 || p.part != nullptr);
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<kAk, kBk, kEpi>;
+  auto kernel = gemm_kernel<kAk, kBk, kEpi, TA, TC, TAux, kRoundB>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGemmSmemBytes<TA>);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM, 2 * p.splits);
-  kernel<<<grid, kGemmThreads, kGemmSmemBytes, stream>>>(p);
+  kernel<<<grid, kGemmThreads, kGemmSmemBytes<TA>, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess || p.splits == 1) return err;
   const long long mn = static_cast<long long>(p.m) * p.n;
   const long long want = (mn + kReduceThreads - 1) / kReduceThreads;
   const dim3 rgrid(static_cast<unsigned>(want < 1024 ? want : 1024), 2);
-  splitk_reduce<kEpi><<<rgrid, kReduceThreads, 0, stream>>>(p);
+  splitk_reduce<kEpi, TC, TAux><<<rgrid, kReduceThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,13 @@ launches the hand-written kernel in ``csrc/trunk_fwd.cu`` (which replaces
 tensors it runs :func:`twin_trunks_plain`.  :func:`twin_trunks_grads` is the
 backward: the twelve weight gradients from the feature cotangent, launched
 from ``csrc/trunk_bwd.cu`` (which replaces ``trunk_pallas.py::_bwd_kernel``)
-or, on CPU tensors, :func:`twin_trunks_grads_plain`.  Both kernels are a
+or, on CPU tensors, :func:`twin_trunks_grads_plain`.  Each has two
+modes, ``precision="float32"`` and ``precision="bf16"``: the JAX kernels'
+``TrunkConfig(precision="default", out_dtype="bfloat16")``, where every
+product operand (scans, weights, activations, cotangents) is rounded to
+bf16 and the products accumulate in float32, the features come out as bf16
+and the cotangent comes in as bf16; the weights and their gradients stay
+float32.  The scans may be float32 or bf16 in either mode.  Both kernels are a
 conv pass and products on one shared core; :func:`plan` says how they cut a
 batch (conv blocks, split-K ranges) and sizes their workspace, which the
 wrappers allocate.  There is no fallback between kernel and plain
@@ -34,10 +40,14 @@ from . import build
 
 #: Forward-kernel launches since the count was last set to 0.
 launches = 0
-#: The same launches by batch size B, cleared with the count.
-launches_by_batch: collections.Counter = collections.Counter()
 #: Backward-kernel launches since the count was last set to 0.
 bwd_launches = 0
+#: Launches of either kernel by (kernel name, batch B, precision), cleared
+#: with the counts.
+launches_by_mode: collections.Counter = collections.Counter()
+
+#: The kernels' modes, and the dtype of the features each gives.
+PRECISIONS = {"float32": torch.float32, "bf16": torch.bfloat16}
 
 #: Per trunk, in this order: conv1 weight (32, F, 5) and bias, conv2 weight
 #: (32, 32, 3) and bias, fc1 weight (256, 32 * L2) and bias.
@@ -57,26 +67,85 @@ def exact_float32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def trunk_plain(scans, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
-    """One trunk, plain version: (B, F, NB) -> (B, 256)."""
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r}: the trunk kernels take "
+                         f"{', '.join(map(repr, PRECISIONS))}")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even), in its own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _Round(torch.autograd.Function):
+    """A product operand in bf16 mode: rounded to bf16 going forward; the
+    gradient passes unchanged (to the float32 weights, and to the
+    activation behind the operand, as the JAX kernel's gradients do)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return round_bf16(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """The identity going forward; going back, the cotangent rounded to
+    bf16, as the JAX kernel rounds g1, g2 and g3 where they enter the
+    products of the weight gradients and the transposed convs (its bias
+    gradients sum them unrounded, so this stands between a product and its
+    bias add)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return round_bf16(g)
+
+
+def trunk_plain(scans, w1, b1, w2, b2, wf, bf,
+                precision: str = "float32") -> torch.Tensor:
+    """One trunk, plain version: (B, F, NB) -> (B, 256), in the weights'
+    dtype (float32; float64 for a reference).  bf16 mode: every product
+    operand rounded to bf16 (exact products), float32 sums, bias adds and
+    ReLUs, the cotangents rounded on the way back, and, in float32, the
+    features rounded to bf16; the same function on the CPU and the card."""
+    x = scans.to(w1.dtype)
     with exact_float32():
-        y = F.relu(F.conv1d(scans, w1, b1, stride=2, padding=1))
-        y = F.relu(F.conv1d(y, w2, b2, stride=2, padding=1))
-        return F.relu(F.linear(y.flatten(1), wf, bf))
+        if precision == "float32":
+            y = F.relu(F.conv1d(x, w1, b1, stride=2, padding=1))
+            y = F.relu(F.conv1d(y, w2, b2, stride=2, padding=1))
+            return F.relu(F.linear(y.flatten(1), wf, bf))
+        r, rc = _Round.apply, _RoundCotangent.apply
+        y = F.relu(rc(F.conv1d(r(x), r(w1), stride=2, padding=1))
+                   + b1[:, None])
+        y = F.relu(rc(F.conv1d(r(y), r(w2), stride=2, padding=1))
+                   + b2[:, None])
+        y = F.relu(rc(F.linear(r(y.flatten(1)), r(wf))) + bf)
+    return y.to(torch.bfloat16) if y.dtype == torch.float32 else y
 
 
-def twin_trunks_plain(scans, act, crt) -> torch.Tensor:
+def twin_trunks_plain(scans, act, crt,
+                      precision: str = "float32") -> torch.Tensor:
     """Plain version of :func:`twin_trunks`."""
-    return torch.stack([trunk_plain(scans, *act), trunk_plain(scans, *crt)])
+    check_precision(precision)
+    return torch.stack([trunk_plain(scans, *act, precision=precision),
+                        trunk_plain(scans, *crt, precision=precision)])
 
 
-def twin_trunks_grads_plain(scans, act, crt, g) -> tuple[tuple, tuple]:
+def twin_trunks_grads_plain(scans, act, crt, g,
+                            precision: str = "float32") -> tuple[tuple, tuple]:
     """Plain version of :func:`twin_trunks_grads`: autograd through
-    :func:`twin_trunks_plain`, in exact float32."""
+    :func:`twin_trunks_plain`, in exact float32 (or the weights' float64)."""
     with torch.enable_grad(), exact_float32():
         ws = [w.detach().requires_grad_() for w in (*act, *crt)]
-        out = twin_trunks_plain(scans.detach(), ws[:6], ws[6:])
-        grads = torch.autograd.grad(out, ws, g)
+        out = twin_trunks_plain(scans.detach(), ws[:6], ws[6:], precision)
+        grads = torch.autograd.grad(out, ws, g.to(out.dtype))
     return tuple(grads[:6]), tuple(grads[6:])
 
 
@@ -142,13 +211,14 @@ class Plan:
     """How the trunk kernels cut a batch of ``batch`` samples of (frames,
     beams) scans: conv blocks per trunk, split-K ranges of fc1 (forward and
     its recompute in the backward) and of dWf, and the workspace each kernel
-    needs, in floats."""
+    needs, in floats, in the mode ``precision``."""
     batch: int
     frames: int
     beams: int
     conv_blocks: int
     fc1_splits: int
     dwf_splits: int
+    precision: str = "float32"
 
     @property
     def nflat(self) -> int:
@@ -169,17 +239,20 @@ class Plan:
 
     def fwd_regions(self) -> dict[str, tuple[int, int]]:
         """(offset, floats) of each part of the forward's workspace: the flat
-        features (2, B, nflat), then fc1's split-K partials."""
+        features (2, B, nflat), float32 or (bf16 mode) bf16, then fc1's
+        split-K partials."""
         flat = 2 * self.batch * self.nflat
+        if self.precision == "bf16":
+            flat //= 2
         return {"flat": (0, flat),
                 "fc1_part": (flat, self._part(self.batch, 256,
                                               self.fc1_splits))}
 
     def bwd_regions(self) -> dict[str, tuple[int, int]]:
         """(offset, floats) of each part of the backward's workspace: the
-        flat features (g2 later), g1, the conv blocks' partials, and the
-        split-K partials of fc1's recompute and of dWf, which share a
-        region."""
+        flat features (g2 later; float32 in both modes), g1, the conv blocks'
+        partials, and the split-K partials of fc1's recompute and of dWf,
+        which share a region."""
         b, nflat = self.batch, self.nflat
         psize = 32 * self.frames * 5 + 32 + 32 * 32 * 3 + 32
         out, at = {}, 0
@@ -201,7 +274,8 @@ class Plan:
         return sum(self.bwd_regions()["k_part"])
 
 
-def plan(batch: int, frames: int, beams: int, sms: int = H100_SMS) -> Plan:
+def plan(batch: int, frames: int, beams: int, sms: int = H100_SMS,
+         precision: str = "float32") -> Plan:
     """The launch plan for ``batch`` samples on a card with ``sms`` SMs: the
     conv passes give each trunk ``sms`` blocks, or one a sample group where
     there are fewer groups (two trunks, two blocks an SM: one wave), and
@@ -214,15 +288,15 @@ def plan(batch: int, frames: int, beams: int, sms: int = H100_SMS) -> Plan:
     dwf = k_splits(2 * ceil_div(256, GEMM_TILE) * ceil_div(nflat, GEMM_TILE),
                    ceil_div(batch, GEMM_K_TILE), slots)
     return Plan(batch, frames, beams, min(ceil_div(batch, FWD_GROUP), sms),
-                fc1, dwf)
+                fc1, dwf, precision)
 
 
-def plan_for(scans: torch.Tensor) -> Plan:
+def plan_for(scans: torch.Tensor, precision: str = "float32") -> Plan:
     """The plan for these (B, F, NB) scans on their card (an H100's SM count
     for CPU tensors)."""
     sms = (_sm_count(scans.device.index or 0) if scans.is_cuda
            else H100_SMS)
-    return plan(*scans.shape, sms)
+    return plan(*scans.shape, sms, precision)
 
 
 def kernel_shapes_ok(frames: int, beams: int) -> bool:
@@ -237,11 +311,11 @@ def _launchers():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = lib.trunk_fwd_launch
     fwd.argtypes = [p, ctypes.POINTER(ctypes.c_void_p), p, p, ll, i, i, i, i,
-                    i, i, p]
+                    i, i, i, i, p]
     fwd.restype = ctypes.c_int
     bwd = lib.trunk_bwd_launch
     bwd.argtypes = [p, ctypes.POINTER(ctypes.c_void_p), p, p, p, ll, i, i, i,
-                    i, i, i, i, p]
+                    i, i, i, i, i, i, p]
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -249,13 +323,13 @@ def _launchers():
 @functools.lru_cache(maxsize=None)
 def workspace_counters():
     """The kernels' own workspace counts, ``trunk_fwd_workspace_floats(B,
-    F, NB, fc1_splits)`` and ``trunk_bwd_workspace_floats(B, F, NB,
-    conv_blocks, fc1_splits, dwf_splits)``: what the launchers hold the
+    F, NB, fc1_splits, bf16_mode)`` and ``trunk_bwd_workspace_floats(B, F,
+    NB, conv_blocks, fc1_splits, dwf_splits)``: what the launchers hold the
     wrapper's workspace to."""
     lib = build.library()
     i = ctypes.c_int
     fwd, bwd = lib.trunk_fwd_workspace_floats, lib.trunk_bwd_workspace_floats
-    fwd.argtypes, fwd.restype = [i] * 4, ctypes.c_longlong
+    fwd.argtypes, fwd.restype = [i] * 5, ctypes.c_longlong
     bwd.argtypes, bwd.restype = [i] * 6, ctypes.c_longlong
     return fwd, bwd
 
@@ -280,9 +354,13 @@ def _weight_shapes(frames: int, beams: int) -> dict:
 
 
 def _check_cuda(what: str, scans, weights, extra=()) -> dict:
-    """What both kernels need of their inputs; returns the weight shapes."""
+    """What both kernels need of their inputs: float32 or bf16 scans,
+    float32 weights, and ``extra`` tensors of their own checked dtype;
+    returns the weight shapes."""
     _require(scans.is_cuda, what,
              lambda: f"unsupported device {scans.device}")
+    _require(scans.dtype in (torch.float32, torch.bfloat16), what,
+             lambda: f"scans must be float32 or bf16, not {scans.dtype}")
     _require(scans.dim() == 3, what,
              lambda: f"scans has shape {tuple(scans.shape)}")
     _require(kernel_shapes_ok(*scans.shape[1:]), what,
@@ -294,93 +372,110 @@ def _check_cuda(what: str, scans, weights, extra=()) -> dict:
     for name, t in zip(WEIGHT_NAMES * 2, weights):
         _require(t.shape == shapes[name], what, lambda: f"{name} has shape "
                  f"{tuple(t.shape)}, wants {shapes[name]}")
+    for t in weights:
+        _require(t.dtype == torch.float32, what,
+                 lambda: f"weights must be float32, not {t.dtype}")
     for t in [scans, *weights, *extra]:
         _require(t.device == scans.device, what,
                  lambda: f"a tensor is on {t.device}, scans on {scans.device}")
-        _require(t.dtype == torch.float32, what,
-                 lambda: "tensors must be float32")
         _require(t.is_contiguous(), what, lambda: "tensors must be contiguous")
         _require(t.data_ptr() % 16 == 0, what,
                  lambda: "tensors must start on a 16-byte boundary")
     return shapes
 
 
-def _kernel_forward(scans, weights) -> torch.Tensor:
+def _kernel_forward(scans, weights, precision: str) -> torch.Tensor:
+    check_precision(precision)
     _check_cuda("twin_trunks", scans, weights)
     b, frames, beams = scans.shape
-    out = torch.empty((2, b, 256), dtype=torch.float32, device=scans.device)
+    out = torch.empty((2, b, 256), dtype=PRECISIONS[precision],
+                      device=scans.device)
     if b == 0:
         return out
     index = scans.device.index or 0
-    pl = plan_for(scans)
+    pl = plan_for(scans, precision)
     work = torch.empty(pl.fwd_workspace, dtype=torch.float32,
                        device=scans.device)
     ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in weights))
     stream = torch.cuda.current_stream(scans.device).cuda_stream
     status = _launchers()[0](scans.data_ptr(), ptrs, out.data_ptr(),
                              work.data_ptr(), work.numel(), b, frames, beams,
-                             pl.conv_blocks, pl.fc1_splits, index, stream)
+                             pl.conv_blocks, pl.fc1_splits,
+                             scans.dtype == torch.bfloat16,
+                             precision == "bf16", index, stream)
     build.check(status, "twin_trunks")
     global launches
     launches += 1
-    launches_by_batch[b] += 1
+    launches_by_mode["twin_trunks", b, precision] += 1
     return out
 
 
 class TwinTrunks(torch.autograd.Function):
-    """``apply(scans, *act, *crt)`` -> (2, B, 256) features; the forward and
-    backward kernels on CUDA, the plain versions on the CPU.  Saves the scans
-    and weights and recomputes the activations in the backward, as the JAX
-    custom_vjp does.  The scans get no gradient: it raises if they need one
-    rather than return a silent zero."""
+    """``apply(scans, *act, *crt[, precision])`` -> (2, B, 256) features;
+    the forward and backward kernels on CUDA, the plain versions on the CPU,
+    in the mode ``precision`` (float32 when not given).  Saves the scans and
+    weights and recomputes the activations in the backward, as the JAX
+    custom_vjp does; in bf16 mode the cotangent arrives as bf16 and goes to
+    the backward kernel as it is.  The scans get no gradient: it raises if
+    they need one rather than return a silent zero."""
 
     @staticmethod
-    def forward(ctx, scans, *weights):
+    def forward(ctx, scans, *args):
         if ctx.needs_input_grad[0]:
             raise RuntimeError("TwinTrunks: the trunk kernels give no "
                                "gradient to the scans; detach them")
+        ctx.named = isinstance(args[-1], str)
+        weights = args[:-1] if ctx.named else args
+        ctx.precision = args[-1] if ctx.named else "float32"
         ctx.save_for_backward(scans, *weights)
         if scans.device.type == "cpu":
-            return twin_trunks_plain(scans, weights[:6], weights[6:])
-        return _kernel_forward(scans, weights)
+            return twin_trunks_plain(scans, weights[:6], weights[6:],
+                                     ctx.precision)
+        return _kernel_forward(scans, weights, ctx.precision)
 
     @staticmethod
     def backward(ctx, g):
         scans, *weights = ctx.saved_tensors
         with record_function("twin_trunks_grads"):
             act, crt = twin_trunks_grads(scans, weights[:6], weights[6:],
-                                         g.contiguous())
-        return (None, *act, *crt)
+                                         g.contiguous(), ctx.precision)
+        return (None, *act, *crt) + ((None,) if ctx.named else ())
 
 
-def twin_trunks(scans, act, crt) -> torch.Tensor:
-    """(B, F, NB) scans and the actor and critic trunk weights (each a
-    sequence in :data:`WEIGHT_NAMES` order) -> (2, B, 256) features.
-    Differentiable in the weights (through :class:`TwinTrunks`), not in the
-    scans."""
+def twin_trunks(scans, act, crt, precision: str = "float32") -> torch.Tensor:
+    """(B, F, NB) scans (float32 or bf16) and the actor and critic trunk
+    weights (each a sequence in :data:`WEIGHT_NAMES` order) -> (2, B, 256)
+    features, float32 or, with ``precision="bf16"``, bf16.  Differentiable
+    in the weights (through :class:`TwinTrunks`), not in the scans."""
     weights = [*act, *crt]
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in [scans, *weights]):
-        return TwinTrunks.apply(scans, *weights)
+        return TwinTrunks.apply(scans, *weights, precision)
     if scans.device.type == "cpu":
-        return twin_trunks_plain(scans, act, crt)
-    return _kernel_forward(scans, weights)
+        return twin_trunks_plain(scans, act, crt, precision)
+    return _kernel_forward(scans, weights, precision)
 
 
-def twin_trunks_grads(scans, act, crt, g) -> tuple[tuple, tuple]:
-    """The gradients of ``sum(g * twin_trunks(scans, act, crt))`` with respect
-    to the actor and the critic trunk weights, as two tuples in
-    :data:`WEIGHT_NAMES` order; ``g`` is (2, B, 256)."""
+def twin_trunks_grads(scans, act, crt, g,
+                      precision: str = "float32") -> tuple[tuple, tuple]:
+    """The gradients of ``sum(g * twin_trunks(scans, act, crt, precision))``
+    with respect to the actor and the critic trunk weights, as two tuples in
+    :data:`WEIGHT_NAMES` order, float32; ``g`` is (2, B, 256) of the
+    features' dtype."""
     if scans.device.type == "cpu":
-        return twin_trunks_grads_plain(scans, act, crt, g)
-    return _kernel_grads(scans, [*act, *crt], g)
+        return twin_trunks_grads_plain(scans, act, crt, g, precision)
+    return _kernel_grads(scans, [*act, *crt], g, precision)
 
 
-def _kernel_grads(scans, weights, g) -> tuple[tuple, tuple]:
+def _kernel_grads(scans, weights, g, precision: str) -> tuple[tuple, tuple]:
+    check_precision(precision)
     shapes = _check_cuda("twin_trunks_grads", scans, weights, (g,))
     b, frames, beams = scans.shape
     _require(g.shape == (2, b, 256), "twin_trunks_grads",
              lambda: f"g has shape {tuple(g.shape)}, wants {(2, b, 256)}")
+    _require(g.dtype == PRECISIONS[precision], "twin_trunks_grads",
+             lambda: f"g is {g.dtype}; the {precision} mode takes a "
+             f"{PRECISIONS[precision]} cotangent")
     sizes = [torch.Size(shapes[n]).numel() for n in WEIGHT_NAMES]
     grads = torch.empty((2, sum(sizes)), dtype=torch.float32,
                         device=scans.device)
@@ -388,7 +483,7 @@ def _kernel_grads(scans, weights, g) -> tuple[tuple, tuple]:
         grads.zero_()
     else:
         index = scans.device.index or 0
-        pl = plan_for(scans)
+        pl = plan_for(scans, precision)
         work = torch.empty(pl.bwd_workspace, dtype=torch.float32,
                            device=scans.device)
         ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in weights))
@@ -396,10 +491,12 @@ def _kernel_grads(scans, weights, g) -> tuple[tuple, tuple]:
         status = _launchers()[1](
             scans.data_ptr(), ptrs, g.data_ptr(), grads.data_ptr(),
             work.data_ptr(), work.numel(), b, frames, beams,
-            pl.conv_blocks, pl.fc1_splits, pl.dwf_splits, index, stream)
+            pl.conv_blocks, pl.fc1_splits, pl.dwf_splits,
+            scans.dtype == torch.bfloat16, precision == "bf16", index, stream)
         build.check(status, "twin_trunks_grads")
         global bwd_launches
         bwd_launches += 1
+        launches_by_mode["twin_trunks_grads", b, precision] += 1
     act, crt = (tuple(part.view(shapes[n]) for part, n in
                       zip(row.split(sizes), WEIGHT_NAMES)) for row in grads)
     return act, crt

@@ -13,6 +13,13 @@ the policy runs through the trunk forward kernel in the rollout and through
 the forward and backward kernels in the update; the env step runs the lidar
 kernel.  Phases are marked with ``torch.profiler.record_function`` so that
 ``bench --train --profile`` can split the device time.
+
+Mixed precision, as the JAX trainer's: ``policy_dtype=torch.bfloat16``
+runs the policy in bf16 (``CNNPolicy(dtype=...)``: the trunk kernels' bf16
+mode and a bf16 dense tail) in the rollout, the bootstrap and the PPO
+update, while parameters, Adam state and the PPO losses stay float32;
+``obs_store_dtype=torch.bfloat16`` stores the env's scan history and the
+rollout buffer's scans in bf16.
 """
 from __future__ import annotations
 
@@ -42,6 +49,13 @@ class TrainConfig:
                                coeff_entropy=5e-4, learning_rate=5e-5)
     seed: int = 0
     max_updates: int = 2000
+    # The policy's compute dtype: float32, or bfloat16 (mixed precision;
+    # parameters and Adam state stay float32).
+    policy_dtype: torch.dtype = torch.float32
+    # Storage dtype of the lidar frames (the env's scan history and the
+    # rollout buffer, the largest training tensor: horizon x arenas x robots
+    # x 3 x 512); None keeps float32.
+    obs_store_dtype: torch.dtype | None = None
 
     @staticmethod
     def stage1(**kw) -> "TrainConfig":
@@ -116,7 +130,8 @@ class Trainer:
         self.cfg = cfg
         self.spec = get_world(cfg.world)
         self.device = resolve_device(device)
-        self.env = Env(self.spec, device=self.device, seed=cfg.seed)
+        self.env = Env(self.spec, device=self.device, seed=cfg.seed,
+                       obs_dtype=cfg.obs_store_dtype)
 
     def _policy_and_optimizer(self, seed: int):
         """A policy with PyTorch's default init from a generator seeded by
@@ -124,7 +139,8 @@ class Trainer:
         (``trainer.py:142``)."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            policy = CNNPolicy(self.spec.laser_frames, self.spec.n_beams)
+            policy = CNNPolicy(self.spec.laser_frames, self.spec.n_beams,
+                               self.cfg.policy_dtype)
         policy = policy.to(self.device)
         optimizer = torch.optim.Adam(policy.parameters(),
                                      lr=self.cfg.ppo.learning_rate,
@@ -192,7 +208,8 @@ class Trainer:
         flat = lambda x: x.reshape(e, *x.shape[2:])
         buf = lambda *shape, dtype=torch.float32: torch.empty(
             (cfg.horizon, a, n, *shape), dtype=dtype, device=self.device)
-        traj = {"scans": buf(*obs.scans.shape[2:]), "goal": buf(2),
+        traj = {"scans": buf(*obs.scans.shape[2:], dtype=obs.scans.dtype),
+                "goal": buf(2),
                 "speed": buf(2), "action": buf(2), "logprob": buf(),
                 "value": buf(), "reward": buf(),
                 **{k: buf(dtype=torch.bool) for k in

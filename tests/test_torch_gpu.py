@@ -128,10 +128,13 @@ def test_trunk_kernel_is_deterministic(cuda):
 def test_trunk_workspace_plan_matches_the_kernels(cuda, batch):
     """The wrapper's workspace sizes equal the launchers' own counts."""
     fwd, bwd = trunk_cuda.workspace_counters()
-    pl = trunk_cuda.plan_for(torch.empty(batch, 3, 512, device=cuda))
-    assert fwd(batch, 3, 512, pl.fc1_splits) == pl.fwd_workspace
-    assert bwd(batch, 3, 512, pl.conv_blocks, pl.fc1_splits,
-               pl.dwf_splits) == pl.bwd_workspace
+    for precision in trunk_cuda.PRECISIONS:
+        pl = trunk_cuda.plan_for(torch.empty(batch, 3, 512, device=cuda),
+                                 precision)
+        assert fwd(batch, 3, 512, pl.fc1_splits,
+                   precision == "bf16") == pl.fwd_workspace
+        assert bwd(batch, 3, 512, pl.conv_blocks, pl.fc1_splits,
+                   pl.dwf_splits) == pl.bwd_workspace
 
 
 def test_trunk_kernel_refuses_unsupported_scans(cuda):
@@ -321,3 +324,145 @@ def test_training_update_on_the_card(cuda):
         assert torch.isfinite(torch.tensor(m[k])), k
     assert max(float((p.detach() - q).abs().max()) for p, q in
                zip(state.policy.parameters(), before)) > 0
+
+
+# ---------------------------------------------------------------------------
+# bf16 mode (precision="bf16"), held as chip_smoke.py holds it: features and
+# gradients within the float32 rule but for counted bf16 rounding flips, each
+# within one bf16 ulp (chip_smoke.flip_check)
+# ---------------------------------------------------------------------------
+
+#: (frames, beams, batch): the mini world's rollout (2 arenas x 4 robots)
+#: and minibatch, stage 1's rollout, acting and minibatch at 32 arenas, and
+#: stage 2's rollout and minibatch at 16 arenas.
+BF16_SHAPES = [(3, 64, 8), (3, 64, 256), (3, 512, 768), (3, 512, 3072),
+               (3, 512, 32768), (3, 512, 704), (3, 512, 8192)]
+
+
+def _bf16_inputs(cuda, frames, beams, batch, scans_dtype, seed=0):
+    torch.manual_seed(seed)
+    policy = CNNPolicy(frames=frames, beams=beams).to(cuda)
+    scans = (torch.rand(batch, frames, beams, device=cuda) - 0.5).to(
+        scans_dtype)
+    act = [w.detach() for w in policy.trunk_weights("act")]
+    crt = [w.detach() for w in policy.trunk_weights("crt")]
+    return scans, act, crt
+
+
+@pytest.mark.parametrize("scans_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frames,beams,batch", BF16_SHAPES)
+def test_trunk_bf16_kernel_matches_plain(cuda, frames, beams, batch,
+                                         scans_dtype):
+    import chip_smoke
+
+    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch, scans_dtype)
+    with torch.no_grad():
+        before = trunk_cuda.launches_by_mode["twin_trunks", batch, "bf16"]
+        got = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
+        assert trunk_cuda.launches_by_mode[
+            "twin_trunks", batch, "bf16"] == before + 1
+        want = trunk_cuda.twin_trunks_plain(scans, act, crt, "bf16")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    chip_smoke.check_features(got, want, "bf16", f"B = {batch}")
+
+
+@pytest.mark.parametrize("batch", [37, 768, 3072])
+def test_trunk_f32_kernel_on_bf16_scans(cuda, batch):
+    """The float32 mode on bf16 scans (--obs-bf16 without --bf16): the
+    float32 tolerance against the plain version on the same scans."""
+    scans, act, crt = _bf16_inputs(cuda, 3, 512, batch, torch.bfloat16)
+    with torch.no_grad():
+        got = trunk_cuda.twin_trunks(scans, act, crt)
+        want = trunk_cuda.twin_trunks_plain(scans, act, crt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=TRUNK_TOL, rtol=TRUNK_TOL)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bf16"])
+@pytest.mark.parametrize("frames,beams,batch", [(3, 64, 256), (3, 512, 37),
+                                                (3, 512, 8192),
+                                                (3, 512, 32768)])
+def test_trunk_bwd_kernel_bf16_scans_within_rounding_limit(
+        cuda, frames, beams, batch, precision):
+    """Both modes on bf16 scans (bf16 mode: bf16 cotangent) against the
+    plain version in float64, by chip_smoke.check_grads."""
+    import chip_smoke
+
+    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch,
+                                   torch.bfloat16, seed=1)
+    g = torch.randn(2, batch, 256, device=cuda).to(
+        trunk_cuda.PRECISIONS[precision])
+    before = trunk_cuda.launches_by_mode["twin_trunks_grads", batch,
+                                         precision]
+    got = trunk_cuda.twin_trunks_grads(scans, act, crt, g, precision)
+    assert trunk_cuda.launches_by_mode[
+        "twin_trunks_grads", batch, precision] == before + 1
+    f64 = lambda ws: [w.double() for w in ws]
+    want = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
+                                              f64(crt), g.double(), precision)
+    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g, precision)
+    torch.cuda.synchronize()
+    chip_smoke.check_grads([*got[0], *got[1]], [*want[0], *want[1]], limits,
+                           precision, f"B = {batch}")
+
+
+@pytest.mark.parametrize("batch", [768, 8192])
+def test_trunk_bf16_kernels_are_deterministic(cuda, batch):
+    """bf16 mode, bf16 scans and cotangent: two launches of each kernel
+    agree bit for bit."""
+    scans, act, crt = _bf16_inputs(cuda, 3, 512, batch, torch.bfloat16)
+    g = torch.randn(2, batch, 256, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        first = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
+        second = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
+    assert torch.equal(first, second)
+    a = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
+    b = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
+    assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1]),
+                                                  (*b[0], *b[1])))
+
+
+def test_trunk_bf16_kernels_refuse_other_dtypes(cuda):
+    """No silent cast: float64 scans, bf16 weights or a cotangent of the
+    other mode's dtype raise."""
+    scans, act, crt = _bf16_inputs(cuda, 3, 512, 8, torch.float32)
+    with torch.no_grad(), pytest.raises(ValueError, match="float32 or bf16"):
+        trunk_cuda.twin_trunks(scans.double(), act, crt, "bf16")
+    with torch.no_grad(), pytest.raises(ValueError, match="weights"):
+        trunk_cuda.twin_trunks(scans, [w.bfloat16() for w in act],
+                               [w.bfloat16() for w in crt], "bf16")
+    with pytest.raises(ValueError, match="cotangent"):
+        trunk_cuda.twin_trunks_grads(scans, act, crt,
+                                     torch.zeros(2, 8, 256, device=cuda),
+                                     "bf16")
+    with pytest.raises(ValueError, match="cotangent"):
+        trunk_cuda.twin_trunks_grads(
+            scans, act, crt,
+            torch.zeros(2, 8, 256, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="precision"):
+        trunk_cuda.twin_trunks(scans, act, crt, "fp16")
+
+
+def test_bf16_training_update_on_the_card(cuda):
+    """One stage-1 update in bf16 (policy and scans, 2 arenas, horizon 16)
+    through all three kernels, the trunks in bf16 mode; finite losses and
+    a bf16 rollout buffer."""
+    tr = Trainer(TrainConfig.stage1(n_arenas=2, horizon=16,
+                                    ppo=PPOConfig(batch_size=256),
+                                    policy_dtype=torch.bfloat16,
+                                    obs_store_dtype=torch.bfloat16),
+                 device=cuda)
+    state = tr.init_state()
+    assert state.env_state.scan_hist.dtype == torch.bfloat16
+    before = dict(trunk_cuda.launches_by_mode)
+    state, m = tr.train_step(state)
+    after = trunk_cuda.launches_by_mode
+    assert after["twin_trunks", 48, "bf16"] - before.get(
+        ("twin_trunks", 48, "bf16"), 0) == 17
+    assert after["twin_trunks_grads", 256, "bf16"] - before.get(
+        ("twin_trunks_grads", 256, "bf16"), 0) == 6
+    for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
+        assert torch.isfinite(torch.tensor(m[k])), k
+    assert all(p.dtype == torch.float32 for p in state.policy.parameters())

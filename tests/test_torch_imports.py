@@ -48,6 +48,12 @@ state, obs = env2.reset(1)
 env2.step(state, torch.zeros(1, 44, 2))
 ft = load_policy("results/circle_ft_params.npz", device="cpu")
 assert run_circle_eval(ft, max_steps=2)["n_robots"] == 50
+bf16 = Trainer(TrainConfig(world="mini", horizon=4,
+                           ppo=ppo.PPOConfig(batch_size=8, epochs=1),
+                           policy_dtype=torch.bfloat16,
+                           obs_store_dtype=torch.bfloat16), device="cpu")
+_, m = bf16.train_step(bf16.init_state())
+assert all(v == v for v in m.values())
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r}))
 """
@@ -60,8 +66,9 @@ def _run(args, cwd=ROOT, env=None):
 
 def test_port_imports_nothing_of_jax():
     """Importing the port and chip_smoke.py, and running the stage-1 acting
-    slice, a training update, a stage-2 env step and two circle-eval steps
-    on the CPU, loads none of JAX, flax, PIL or the JAX package."""
+    slice, a training update, a stage-2 env step, two circle-eval steps and
+    a bf16 training update (bf16 policy and scans) on the CPU, loads none
+    of JAX, flax, PIL or the JAX package."""
     code = _SLICE.replace("{FORBIDDEN!r}", repr(set(FORBIDDEN)))
     proc = _run(["-c", code], env=NO_CARD)
     assert proc.returncode == 0, proc.stderr

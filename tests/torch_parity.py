@@ -105,8 +105,16 @@ STATE_FIELDS = ("pose", "speed", "goal", "dist", "step", "dead", "scan_hist",
                 "ep_return")
 
 
+def _to_torch(x) -> torch.Tensor:
+    """A JAX array as a torch tensor of its dtype (bf16 through float32,
+    which holds every bf16 value exactly)."""
+    if x.dtype == jnp.bfloat16:
+        return torch.tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+    return torch.tensor(np.asarray(x))
+
+
 def to_torch_state(jstate) -> EnvState:
-    return EnvState(**{f: torch.tensor(np.asarray(getattr(jstate, f)))
+    return EnvState(**{f: _to_torch(getattr(jstate, f))
                        for f in STATE_FIELDS})
 
 
