@@ -18,17 +18,22 @@ path ran through the kernels, at those batch sizes, and stayed right:
   one update);
 - a checkpoint round trip: a stage-2 update after a save and a restore into
   a fresh Trainer is bit-equal to the update without the break;
-- in bf16 (``--bf16 --obs-bf16``: the trunk kernels' bf16 mode, a bf16
-  policy tail, bf16 scans): stage-1 acting at 128 arenas and stage-1
-  training at 32 arenas, with the bf16 trunk forward held to its plain
-  bf16 version at B = 768, 3,072 and 32,768 and the bf16 backward at
-  32,768.
+- in bf16 (``--bf16 --obs-bf16``: the trunk kernels' bf16 mode on the
+  tensor cores, a bf16 policy tail, bf16 scans): stage-1 acting at 128
+  arenas and stage-1 training at 32 arenas, with the bf16 trunk forward
+  held to its plain bf16 version at B = 768, 3,072 and 32,768 and the bf16
+  backward at 32,768.
 
-Each kernel's time is its device time (torch.profiler's kernel durations
-over many calls), beside the wrapper's host microseconds a call.  It also
-prints the device ms of each pass of one trunk forward and one backward
-launch at B = 32,768 (torch.profiler).  It writes nothing into the tree
-(the checkpoint goes to a temporary directory).
+Right after the build it reads the library's SASS (``cuobjdump -sass``):
+every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
+instructions (HMMA/HGMMA) and no float32 kernel may.  Each kernel's time is
+its device time (torch.profiler's kernel durations over many calls), beside
+the wrapper's host microseconds a call and, for the trunk kernels, the
+bytes of the workspace tensor one launch allocated and the rise of the
+allocator's peak over that call.  It also prints the device ms of each
+pass of one trunk forward and one backward launch at B = 32,768 in each
+mode (torch.profiler).  It writes nothing into the tree (the checkpoint goes to
+a temporary directory).
 
     python3 chip_smoke.py
 
@@ -44,6 +49,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -289,6 +296,64 @@ def build_kernels():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+#: The trunk kernels' functions by mode, as their mangled names spell them
+#: (length-prefixed, so one is never read inside another): the bf16 mode's
+#: products, conv pass and conv_bwd run on the tensor cores; the float32
+#: mode's never do (the exact-f32 rule bans TF32 there).
+TENSOR_CORE_KERNELS = ("mma_gemm_kernel", "conv_mma_kernel",
+                       "conv_bwd_mma_kernel")
+FLOAT32_KERNELS = ("gemm_kernel", "conv_fwd_kernel", "conv_bwd_kernel")
+
+
+def sass_mma_counts(lib) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel function of the
+    built library, from ``cuobjdump -sass``; raises when the toolkit has no
+    cuobjdump."""
+    from rl_collision_avoidance_torch.ops import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool}): the "
+                           f"tensor-core check needs it")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
+
+
+@phase("tensor-core SASS")
+def check_sass() -> dict:
+    """Every bf16 product, conv-pass and conv_bwd kernel has HMMA/HGMMA
+    instructions, no float32 kernel has any; returns the counts by kernel
+    family and mode."""
+    from rl_collision_avoidance_torch.ops import build
+
+    counts = sass_mma_counts(build.build())
+    out = {}
+    for names, tensor in ((TENSOR_CORE_KERNELS, True),
+                          (FLOAT32_KERNELS, False)):
+        for n in names:
+            fns = {f: c for f, c in counts.items() if f"{len(n)}{n}" in f}
+            if not fns:
+                raise AssertionError(f"no {n} in the built library")
+            bad = [f for f, c in fns.items() if (c == 0) == tensor]
+            if bad:
+                raise AssertionError(
+                    f"{n}: {'no' if tensor else 'some'} tensor-core "
+                    f"instructions in {bad}")
+            out[n] = sorted(fns.values())
+    print(f"sass: HMMA/HGMMA instructions per kernel instance (cuobjdump "
+          f"-sass): {json.dumps(out)}", flush=True)
+    return out
+
+
 def stage1_test_poses(env, arenas: int):
     """Seeded poses for every robot: uniform in the spawn disc, plus per
     arena one robot 0.3-0.5 m from the east wall facing it and a pair of
@@ -387,7 +452,8 @@ def check_lidar(device, world: str, arenas: int):
               "source": "rl_collision_avoidance_torch/ops/csrc/lidar.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/lidar_pallas.py:35",
               "world": world, "batch": a * n, "precision": "float32",
-              "max_abs_err": err, "library_ms": None}
+              "max_abs_err": err, "library_ms": None,
+              "workspace_bytes": None, "peak_bytes": None}
     if device.type == "cuda":
         record["ms"], record["host_us"] = time_ms(
             lambda: lidar_cuda.lidar_obs(pose, *args), 50)
@@ -490,6 +556,9 @@ def check_trunk(device, world: str, batch: int, precision: str = "float32"):
         with torch.no_grad():
             record["ms"], record["host_us"] = time_ms(
                 lambda: trunk_cuda.twin_trunks(scans, act, crt, precision), 20)
+            record.update(call_memory(
+                lambda: trunk_cuda.twin_trunks(scans, act, crt, precision),
+                ("twin_trunks", b, precision), "trunk forward"))
             record["plain_ms"] = time_ms(
                 lambda: trunk_cuda.twin_trunks_plain(scans, act, crt,
                                                      precision), 20)[0]
@@ -497,6 +566,36 @@ def check_trunk(device, world: str, batch: int, precision: str = "float32"):
     record["bound_ms"], record["bound_by"] = bound(
         nbytes, ops, BF16_OPS_PER_S if precision == "bf16" else F32_OPS_PER_S)
     return record
+
+
+def call_memory(fn, key, what: str) -> dict:
+    """Device memory of one call of a trunk wrapper ``fn``, measured on the
+    card: ``workspace_bytes``, the size of the workspace tensor that its
+    launch allocated (``trunk_cuda.workspace_bytes[key]``), and
+    ``peak_bytes``, the rise of the caching allocator's peak above what was
+    allocated before the call (workspace and outputs), which must hold the
+    workspace."""
+    import torch
+
+    from rl_collision_avoidance_torch.ops import trunk_cuda
+
+    trunk_cuda.workspace_bytes.pop(key, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    out = {"workspace_bytes": trunk_cuda.workspace_bytes.get(key),
+           "peak_bytes": torch.cuda.max_memory_allocated() - before}
+    if out["workspace_bytes"] is None:
+        raise AssertionError(f"{what}: the call launched no kernel at {key}")
+    if out["peak_bytes"] < out["workspace_bytes"]:
+        raise AssertionError(f"{what}: the allocator's peak rose by "
+                             f"{out['peak_bytes']} bytes, less than the "
+                             f"{out['workspace_bytes']}-byte workspace")
+    print(f"{what} {key}: workspace {out['workspace_bytes']} bytes, the "
+          f"call's peak rise {out['peak_bytes']} bytes", flush=True)
+    return out
 
 
 def reset_counts():
@@ -833,6 +932,10 @@ def check_trunk_bwd(device, world: str, batch: int,
         record["ms"], record["host_us"] = time_ms(
             lambda: trunk_cuda.twin_trunks_grads(scans, act, crt, g,
                                                  precision), 5, 1)
+        record.update(call_memory(
+            lambda: trunk_cuda.twin_trunks_grads(scans, act, crt, g,
+                                                 precision),
+            ("twin_trunks_grads", b, precision), "trunk backward"))
         record["plain_ms"] = time_ms(
             lambda: trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g,
                                                        precision), 5, 1)[0]
@@ -844,15 +947,21 @@ def check_trunk_bwd(device, world: str, batch: int,
 
 
 # The kernels' passes by the CUDA symbol names torch.profiler reports
-# (demangled or not): the conv passes, the product core's instances (A and B
-# k-contiguous or not, epilogue; then the types), its split-K reduce, the
-# backward's reduce.
-PASSES = (("conv_fwd_kernel", "conv pass"), ("conv_bwd_kernel", "conv_bwd"),
-          ("splitk_reduce", "split-K reduce"), ("reduce_kernel", "reduce"),
-          ("gemm_kernel<true,true,1,|ILb1ELb1ELi1E", "fc1 product"),
-          ("gemm_kernel<true,true,2,|ILb1ELb1ELi2E", "g1 product"),
-          ("gemm_kernel<false,false,0,|ILb0ELb0ELi0E", "dWf product"),
-          ("gemm_kernel<true,false,3,|ILb1ELb0ELi3E", "dflat product"))
+# (demangled or not), in both modes (float32: FFMA kernels; bf16: the
+# tensor-core conv_mma_kernel, conv_bwd_mma_kernel and mma_gemm_kernel): the
+# conv passes, the product cores' instances (A and B k-contiguous or not,
+# epilogue, then the bf16 core's types), their split-K reduce, the
+# backward's reduces.
+PASSES = (("conv_fwd_kernel|conv_mma_kernel", "conv pass"),
+          ("conv_bwd_kernel|conv_bwd_mma_kernel", "conv_bwd"),
+          ("splitk_reduce", "split-K reduce"),
+          ("reduce_kernel|reduce_bf16_kernel|bias_rows_kernel|db2_kernel",
+           "reduce"),
+          ("gemm_kernel<true,true,1|ILb1ELb1ELi1E", "fc1 product"),
+          ("gemm_kernel<true,true,2|ILb1ELb1ELi2E", "g1 product"),
+          ("gemm_kernel<false,false,0|ILb0ELb0ELi0E", "dWf product"),
+          ("gemm_kernel<true,false,3|ILb1ELb0ELi3E|gemm_kernel<true,false,4"
+           "|ILb1ELb0ELi4E", "dflat product"))
 
 
 @phase("trunk kernels by pass")
@@ -1335,6 +1444,7 @@ def main() -> int:
     name, label = check_device()
     device = torch.device("cuda", 0)
     build_kernels()
+    check_sass()
     from rl_collision_avoidance_torch.train import TrainConfig
     from rl_collision_avoidance_torch.worlds import get_world
 
@@ -1395,7 +1505,8 @@ def main() -> int:
                                           None, f64=True)[0]))
     keys = ("name", "path", "world", "batch", "precision", "route", "source",
             "replaces", "launches", "max_abs_err", "ms", "host_us",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "workspace_bytes", "peak_bytes")
     kernels = [{**records[(name, world, b, prec)], "path": path,
                 "launches": k}
                for path, world, launches in paths

@@ -1,12 +1,12 @@
-// bf16 helpers of the twin-trunk kernels' two modes.
+// bf16 helpers of the twin-trunk kernels.
 //
 // In float32 mode every product operand is the float it is.  In bf16 mode
 // (the JAX package's TrunkConfig(precision="default"): bf16 multiplies,
 // float32 accumulation) every product operand is rounded to bf16, to
 // nearest with ties to even as torch's .to(torch.bfloat16) and XLA's
-// convert do, and the product of two bf16 values is exact in float32; so
-// float32 FMAs on rounded operands compute what a bf16 matrix unit with
-// float32 accumulation computes.  Sums, bias adds and ReLUs stay float32.
+// convert do, and the tensor cores multiply bf16 values exactly and add the
+// products in float32 (trunk_mma.cuh).  Sums, bias adds and ReLUs stay
+// float32.  The scans may be bf16 in either mode.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,17 +15,6 @@
 namespace trunk {
 
 using bf16 = __nv_bfloat16;
-
-// x rounded to the nearest bf16, as a float.
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// A product operand: rounded to bf16 in bf16 mode (kRound).
-template <bool kRound>
-__device__ __forceinline__ float operand(float x) {
-  return kRound ? round_bf16(x) : x;
-}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -63,16 +52,9 @@ __device__ __forceinline__ float4 ld4(const bf16* p) {
                      bf16_half<false>(u.y), bf16_half<true>(u.y));
 }
 
-// Store four values at p (aligned as for ld4), each rounded to T.
+// Store four floats at p (16-byte aligned).
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void st4(bf16* p, float4 v) {
-  const auto bits = [](float a, float b) {
-    return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
-           static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16;
-  };
-  *reinterpret_cast<uint2*>(p) = make_uint2(bits(v.x, v.y), bits(v.z, v.w));
 }
 
 }  // namespace trunk

@@ -1,6 +1,9 @@
-// The two convolutions of a CNNPolicy trunk, shared by the forward
-// (trunk_fwd.cu) and backward (trunk_bwd.cu) kernels so both compute the
-// activations with the same code and the same rounding.  float32 FMA only.
+// The float32 mode's two convolutions of a CNNPolicy trunk, shared by the
+// forward (trunk_fwd.cu) and backward (trunk_bwd.cu) kernels so both
+// compute the activations with the same code and the same rounding.
+// float32 FMA only (no tensor cores, no TF32: the exact-f32 rule), so the
+// 67 TFLOP/s FFMA peak bounds it; the bf16 mode's conv pass runs on the
+// tensor cores instead (trunk_conv_mma.cuh).
 //
 // conv1 (F -> 32, k5 s2 p1) and conv2 (32 -> 32, k3 s2 p1) are small
 // register-tiled products: a thread owns 8 output channels x 4 positions
@@ -14,11 +17,7 @@
 // lanes.  Each sum starts at the bias and adds its terms in the order
 // (frame or input channel, tap), as F.conv1d's definition lists them.
 //
-// Both modes of trunk_bf16.cuh: in bf16 mode (kRound) the scans, the
-// weights and the conv1 activations are rounded to bf16 where they are
-// staged in shared memory, so the FMAs multiply bf16 values exactly, and
-// the flat features leave rounded too (as bf16, or as floats that hold bf16
-// values).  The scans may be float32 or bf16 (TX) in either mode.
+// The scans may be float32 or bf16 (TX).
 //
 // Shapes: 1 <= F <= kMaxFrames frames and a beam count that is a multiple
 // of 16, so that L1 = NB / 2 - 1 (padded to NB / 2 with one zero output)
@@ -80,12 +79,11 @@ __host__ __device__ inline int x_floats(const ConvGeom& g) { return 2 * g.frames
 __host__ __device__ inline int y1_floats(const ConvGeom& g) { return 2 * kC * g.ys; }
 
 // w1 (c, f, t) -> w1t[(f * 5 + t) * 32 + c], and b1.
-template <bool kRound>
 __device__ inline void stage_conv1_weights(const Trunk& p, float* w1t,
                                            float* b1, int frames, int tid) {
   for (int i = tid; i < kC * frames * 5; i += kConvThreads) {
     const int c = i / (frames * 5);
-    w1t[(i - c * frames * 5) * kC + c] = operand<kRound>(p.w1[i]);
+    w1t[(i - c * frames * 5) * kC + c] = p.w1[i];
   }
   for (int i = tid; i < kC; i += kConvThreads) b1[i] = p.b1[i];
 }
@@ -93,15 +91,14 @@ __device__ inline void stage_conv1_weights(const Trunk& p, float* w1t,
 // w2 (c, ci, t) -> w2s[(ci * 3 + t) * 32 + c] when kByOutput (conv2: the
 // output channels contiguous), else w2s[(c * 3 + t) * 32 + ci] (the
 // transposed conv2: the input channels contiguous).
-template <bool kByOutput, bool kRound>
+template <bool kByOutput>
 __device__ inline void stage_conv2_weights(const Trunk& p, float* w2s,
                                            int tid) {
   for (int i = tid; i < kC * kC * 3; i += kConvThreads) {
     const int c = i / (kC * 3);
     const int ci = (i / 3) % kC;
     const int t = i % 3;
-    w2s[kByOutput ? (ci * 3 + t) * kC + c : (c * 3 + t) * kC + ci] =
-        operand<kRound>(p.w2[i]);
+    w2s[kByOutput ? (ci * 3 + t) * kC + c : (c * 3 + t) * kC + ci] = p.w2[i];
   }
 }
 
@@ -124,7 +121,7 @@ __device__ inline void zero_pads(float* xsm, float* y1, const ConvGeom& g,
 
 // One sample's scans (F, NB) into its x planes: e[q] = x[2q], o[q + 1] =
 // x[2q + 1].
-template <bool kRound, class TX>
+template <class TX>
 __device__ inline void load_x(const TX* __restrict__ xb, float* xsm,
                               const ConvGeom& g, int tid) {
   const int per_row = g.beams / 4;
@@ -134,18 +131,15 @@ __device__ inline void load_x(const TX* __restrict__ xb, float* xsm,
     const float4 v = ld4(xb + f * g.beams + 4 * q);
     float* xe = xsm + f * g.xs;
     float* xo = xe + g.frames * g.xs;
-    xe[2 * q] = operand<kRound>(v.x);
-    xe[2 * q + 1] = operand<kRound>(v.z);
-    xo[2 * q + 1] = operand<kRound>(v.y);
-    xo[2 * q + 2] = operand<kRound>(v.w);
+    xe[2 * q] = v.x;
+    xe[2 * q + 1] = v.z;
+    xo[2 * q + 1] = v.y;
+    xo[2 * q + 2] = v.w;
   }
 }
 
 // conv1 + ReLU for channels 8 cg .. 8 cg + 7 at positions 4 lg .. 4 lg + 3
-// of one sample, into its conv1 planes (position L1, the padding, gets 0);
-// rounded to bf16 in bf16 mode, where conv1 feeds products only (its ReLU
-// mask is the same: rounding keeps the sign).
-template <bool kRound>
+// of one sample, into its conv1 planes (position L1, the padding, gets 0).
 __device__ __forceinline__ void conv1_item(const float* xsm, const float* w1t,
                                            const float* b1, float* y1,
                                            const ConvGeom& g, int cg, int lg) {
@@ -181,7 +175,7 @@ __device__ __forceinline__ void conv1_item(const float* xsm, const float* w1t,
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      v[j] = l0 + j < g.l1 ? operand<kRound>(fmaxf(acc[c][j], 0.0f)) : 0.0f;
+      v[j] = l0 + j < g.l1 ? fmaxf(acc[c][j], 0.0f) : 0.0f;
     float* ye = y1 + (c0 + c) * g.ys;
     float* yo = y1 + (kC + c0 + c) * g.ys;
     *reinterpret_cast<float2*>(ye + l0 / 2) = make_float2(v[0], v[2]);
@@ -192,11 +186,10 @@ __device__ __forceinline__ void conv1_item(const float* xsm, const float* w1t,
 
 // conv2 + ReLU for channels 8 cg .. 8 cg + 7 at positions 4 mg .. 4 mg + 3
 // of one sample, into its flat features out[c * L2 + m] (channel-major,
-// the reference layout), rounded to bf16 in bf16 mode.
-template <bool kRound, class TOut>
+// the reference layout).
 __device__ __forceinline__ void conv2_item(const float* y1, const float* w2t,
                                            const float* b2,
-                                           TOut* __restrict__ out,
+                                           float* __restrict__ out,
                                            const ConvGeom& g, int cg, int mg) {
   const int c0 = cg * 8, m0 = mg * 4;
   float acc[8][4];
@@ -228,10 +221,8 @@ __device__ __forceinline__ void conv2_item(const float* y1, const float* w2t,
 #pragma unroll
   for (int c = 0; c < 8; ++c)
     st4(out + (c0 + c) * g.l2 + m0,
-        make_float4(operand<kRound>(fmaxf(acc[c][0], 0.0f)),
-                    operand<kRound>(fmaxf(acc[c][1], 0.0f)),
-                    operand<kRound>(fmaxf(acc[c][2], 0.0f)),
-                    operand<kRound>(fmaxf(acc[c][3], 0.0f))));
+        make_float4(fmaxf(acc[c][0], 0.0f), fmaxf(acc[c][1], 0.0f),
+                    fmaxf(acc[c][2], 0.0f), fmaxf(acc[c][3], 0.0f)));
 }
 
 inline size_t conv_fwd_smem_bytes(const ConvGeom& g) {
@@ -253,12 +244,12 @@ __device__ inline void block_samples(int batch, int blocks, int i, int* lo,
 
 // The conv pass: flat[t][b] = the channel-major conv2 features of sample b
 // through trunk t = blockIdx.y.  Block i takes the samples block_samples
-// gives it, kGroup at a time, with three barriers per group.  kRound: bf16
-// mode; TX: the scans' type; TOut: the flat features' type.
-template <int kGroup, bool kRound, class TX, class TOut>
+// gives it, kGroup at a time, with three barriers per group.  TX: the
+// scans' type.
+template <int kGroup, class TX>
 __global__ void __launch_bounds__(kConvThreads, 2)
     conv_fwd_kernel(const TX* __restrict__ x, Trunk act, Trunk crt,
-                    TOut* __restrict__ flat, int batch, int frames,
+                    float* __restrict__ flat, int batch, int frames,
                     int beams) {
   extern __shared__ __align__(16) float sh[];
   const ConvGeom g = conv_geom(frames, beams);
@@ -270,8 +261,8 @@ __global__ void __launch_bounds__(kConvThreads, 2)
   float* w2t = b2 + kC;
   float* xsm = w2t + kC * kC * 3;
   float* y1 = xsm + kGroup * x_floats(g);
-  stage_conv1_weights<kRound>(p, w1t, b1, frames, tid);
-  stage_conv2_weights<true, kRound>(p, w2t, tid);
+  stage_conv1_weights(p, w1t, b1, frames, tid);
+  stage_conv2_weights<true>(p, w2t, tid);
   for (int i = tid; i < kC; i += kConvThreads) b2[i] = p.b2[i];
   zero_pads(xsm, y1, g, kGroup, tid);
 
@@ -282,20 +273,20 @@ __global__ void __launch_bounds__(kConvThreads, 2)
     const int nb = min(kGroup, b_end - b0);
     __syncthreads();  // the previous group's conv2 has read y1
     for (int s = 0; s < nb; ++s)
-      load_x<kRound>(x + static_cast<size_t>(b0 + s) * frames * beams,
+      load_x(x + static_cast<size_t>(b0 + s) * frames * beams,
              xsm + s * x_floats(g), g, tid);
     __syncthreads();
     for (int it = tid; it < nb * 4 * nlg; it += kConvThreads) {
       const int s = it / (4 * nlg);
       const int r = it - s * 4 * nlg;
-      conv1_item<kRound>(xsm + s * x_floats(g), w1t, b1, y1 + s * y1_floats(g), g,
+      conv1_item(xsm + s * x_floats(g), w1t, b1, y1 + s * y1_floats(g), g,
                  r / nlg, r % nlg);
     }
     __syncthreads();
     for (int it = tid; it < nb * 4 * nmg; it += kConvThreads) {
       const int s = it / (4 * nmg);
       const int r = it - s * 4 * nmg;
-      conv2_item<kRound>(y1 + s * y1_floats(g), w2t, b2,
+      conv2_item(y1 + s * y1_floats(g), w2t, b2,
                  flat + (blockIdx.y * static_cast<size_t>(batch) + b0 + s) * g.nflat,
                  g, r / nmg, r % nmg);
     }
@@ -303,13 +294,13 @@ __global__ void __launch_bounds__(kConvThreads, 2)
 }
 
 // Enqueue the conv pass over both trunks.
-template <bool kRound, class TX, class TOut>
-inline cudaError_t launch_conv_fwd(const TX* x, const Trunk* tr, TOut* flat,
+template <class TX>
+inline cudaError_t launch_conv_fwd(const TX* x, const Trunk* tr, float* flat,
                                    int batch, int frames, int beams,
                                    int blocks, cudaStream_t stream) {
   const ConvGeom g = conv_geom(frames, beams);
   const size_t smem = conv_fwd_smem_bytes(g);
-  auto kernel = conv_fwd_kernel<kFwdGroup, kRound, TX, TOut>;
+  auto kernel = conv_fwd_kernel<kFwdGroup, TX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -10,35 +10,41 @@
 // What bounds it on an H100: operations.  Per sample and trunk it does
 // ~3.1 MFLOP (conv1 0.24, conv2 0.79, fc1 2.1) against 6 KB of scans read
 // and 1 KB of features written: at B = 32,768, 0.21 TFLOP, ~3.1 ms at the
-// 67 TFLOP/s float32 peak.
+// 67 TFLOP/s FFMA peak (float32 mode) and 0.21 ms at the 989 TFLOP/s dense
+// bf16 tensor-core peak (bf16 mode).  The bf16 mode's two passes also write
+// and read its bf16 flat features, 1.07 GB at B = 32,768: 0.32 ms at 3.35
+// TB/s, above the ops bound (fusing the conv pass into fc1 would keep them
+// on chip).
 //
 // Design: trunk_fwd_launch enqueues two passes.
-//   1. The conv pass (trunk_conv.cuh): 2 x 132 blocks of 256 threads, each
-//      walking a fixed range of samples two at a time, conv1 and conv2 as
-//      register-tiled products in ~95 KB of shared memory (two blocks fit
-//      on an SM), writing the channel-major flat features (2, B, 32 L2) to
-//      a workspace.
-//   2. fc1 on the shared product core (trunk_gemm.cuh), bias + ReLU in its
-//      epilogue, into the (2, B, 256) output.  Where the batch gives too
+//   1. The conv pass: 2 x 132 blocks of 256 threads, each walking a fixed
+//      range of samples two at a time, writing the channel-major flat
+//      features (2, B, 32 L2) to a workspace.  float32 mode:
+//      trunk_conv.cuh, conv1 and conv2 as register-tiled FFMA products in
+//      ~95 KB of shared memory.  bf16 mode: trunk_conv_mma.cuh, conv1 and
+//      conv2 on the tensor cores, the features bf16 (half the workspace);
+//      its blocks also write the fc1 weight as bf16 for pass 2.
+//   2. fc1 + bias + ReLU into the (2, B, 256) output: float32 mode on the
+//      FFMA product core (trunk_gemm.cuh), bf16 mode on the tensor-core
+//      core (trunk_mma.cuh) with bf16 output.  Where the batch gives too
 //      few 128 x 128 tiles to fill the card (B = 768: 24), the wrapper's
 //      plan splits K = 32 L2 into ranges whose partial sums a fixed-order
 //      pass adds.
-// Two modes (trunk_bf16.cuh): float32, and bf16, the JAX kernel's
-// precision="default" with out_dtype bfloat16: the scans, weights and
-// activations rounded to bf16 where they enter a product, float32 sums,
-// bias adds and ReLUs, the flat features kept as bf16 (half the workspace)
-// and the features written as bf16.  The scans may be float32 or bf16 in
-// either mode.  In bf16 mode the bound is the tensor cores' 989 TFLOP/s;
-// this version multiplies on the FFMA path all the same.
+// The bf16 mode is the JAX kernel's precision="default" with out_dtype
+// bfloat16: the scans, weights and activations rounded to bf16 where they
+// enter a product, float32 sums, bias adds and ReLUs, and the features
+// written as bf16.  The scans may be float32 or bf16 in either mode.
 // A fused kernel would have to keep 32 KB of conv1 activations per sample
 // to amortise the 4 MB fc1 weight over enough samples; two passes keep the
-// features in HBM instead (1.07 GB at B = 32,768, in L2 at B = 768).  The
-// backward kernel runs the same two pieces with the same plan, so its
-// recomputed fc1 pre-activations equal these bit for bit.
+// features in HBM instead (in L2 at B = 768).  The backward kernel runs the
+// same two pieces with the same plan, so its recomputed fc1
+// pre-activations equal these bit for bit.
 #include <cuda_runtime.h>
 
 #include "trunk_conv.cuh"
+#include "trunk_conv_mma.cuh"
 #include "trunk_gemm.cuh"
+#include "trunk_mma.cuh"
 
 using trunk::bf16;
 using trunk::kH;
@@ -46,44 +52,68 @@ using trunk::Trunk;
 
 namespace {
 
-// Floats of the flat features: (2, B, nflat) floats, or as many bf16.
-long long flat_floats(int batch, const trunk::ConvGeom& g, bool bf16_mode) {
-  const long long n = 2LL * batch * g.nflat;
-  return bf16_mode ? n / 2 : n;
-}
-
+// Floats of workspace: the flat features (2, B, nflat), float32 or as many
+// bf16; in bf16 mode the bf16 fc1 weight (2, 256, nflat); fc1's split-K
+// partials.
 long long fwd_workspace_floats(int batch, const trunk::ConvGeom& g,
                                int fc1_splits, bool bf16_mode) {
-  return flat_floats(batch, g, bf16_mode) +
+  const long long flat = 2LL * batch * g.nflat;
+  return (bf16_mode ? flat / 2 + 1LL * kH * g.nflat : flat) +
          trunk::gemm_part_floats(batch, kH, fc1_splits);
 }
 
-// The conv pass into the flat features, then fc1 + bias + ReLU into out;
-// in bf16 mode (kRound) the flat features and out are bf16 (T).
-template <bool kRound, class TX, class T>
-cudaError_t forward(const TX* x, const Trunk* tr, T* out, float* work,
-                    int batch, int frames, int beams, int conv_blocks,
-                    int fc1_splits, cudaStream_t st) {
-  const trunk::ConvGeom g = trunk::conv_geom(frames, beams);
-  T* flat = reinterpret_cast<T*>(work);  // (2, B, nflat)
-  cudaError_t err = trunk::launch_conv_fwd<kRound>(x, tr, flat, batch, frames,
-                                                   beams, conv_blocks, st);
-  if (err != cudaSuccess) return err;
-
+// fc1's product over the flat features: M = B, N = 256, K = nflat.
+template <class TA, class TB, class TC>
+trunk::Gemm fc1_gemm(const TA* flat, const TB* const (&wf)[2], TC* out,
+                     const Trunk* tr, float* part, int batch, int nflat,
+                     int splits, int k_tile) {
   trunk::Gemm p{};
   for (int t = 0; t < 2; ++t) {
-    p.a[t] = flat + static_cast<size_t>(t) * batch * g.nflat;
-    p.b[t] = tr[t].wf;
+    p.a[t] = flat + static_cast<size_t>(t) * batch * nflat;
+    p.b[t] = wf[t];
     p.c[t] = out + static_cast<size_t>(t) * batch * kH;
     p.bias[t] = tr[t].bf;
   }
-  p.lda = g.nflat, p.ldb = g.nflat, p.ldc = kH;
-  p.m = batch, p.n = kH, p.k = g.nflat;
-  p.part = work + flat_floats(batch, g, kRound);
-  p.splits = fc1_splits;
-  p.kchunk = trunk::ceil_div(trunk::ceil_div(g.nflat, trunk::kBK), fc1_splits);
-  return trunk::run_gemm<true, true, trunk::kBiasRelu, T, T, float, kRound>(
-      p, st);
+  p.lda = nflat, p.ldb = nflat, p.ldc = kH;
+  p.m = batch, p.n = kH, p.k = nflat;
+  p.part = part;
+  p.splits = splits;
+  p.kchunk = trunk::ceil_div(trunk::ceil_div(nflat, k_tile), splits);
+  return p;
+}
+
+template <class TX>
+cudaError_t forward_f32(const TX* x, const Trunk* tr, float* out,
+                        float* work, int batch, int frames, int beams,
+                        int conv_blocks, int fc1_splits, cudaStream_t st) {
+  const trunk::ConvGeom g = trunk::conv_geom(frames, beams);
+  float* flat = work;  // (2, B, nflat)
+  cudaError_t err = trunk::launch_conv_fwd(x, tr, flat, batch, frames, beams,
+                                           conv_blocks, st);
+  if (err != cudaSuccess) return err;
+  const float* const wf[2] = {tr[0].wf, tr[1].wf};
+  const trunk::Gemm p =
+      fc1_gemm(flat, wf, out, tr, work + 2LL * batch * g.nflat, batch,
+               g.nflat, fc1_splits, trunk::kBK);
+  return trunk::run_gemm<true, true, trunk::kBiasRelu>(p, st);
+}
+
+template <class TX>
+cudaError_t forward_bf16(const TX* x, const Trunk* tr, bf16* out,
+                         float* work, int batch, int frames, int beams,
+                         int conv_blocks, int fc1_splits, cudaStream_t st) {
+  const trunk::ConvGeom g = trunk::conv_geom(frames, beams);
+  const long long flat_floats = 1LL * batch * g.nflat;  // (2, B, nflat) bf16
+  bf16* flat = reinterpret_cast<bf16*>(work);
+  bf16* wf16 = reinterpret_cast<bf16*>(work + flat_floats);
+  cudaError_t err = trunk::launch_conv_mma(x, tr, flat, wf16, batch, frames,
+                                           beams, conv_blocks, st);
+  if (err != cudaSuccess) return err;
+  const bf16* const wf[2] = {wf16, wf16 + static_cast<size_t>(kH) * g.nflat};
+  const trunk::Gemm p = fc1_gemm(
+      flat, wf, out, tr, work + flat_floats + 1LL * kH * g.nflat, batch,
+      g.nflat, fc1_splits, trunk::mma::kBK);
+  return trunk::run_mma_gemm<true, true, trunk::kBiasRelu, bf16>(p, st);
 }
 
 template <class TX>
@@ -92,12 +122,10 @@ cudaError_t forward_in_mode(const TX* x, const Trunk* tr, void* out,
                             int conv_blocks, int fc1_splits, bool bf16_mode,
                             cudaStream_t st) {
   if (bf16_mode)
-    return forward<true, TX, bf16>(x, tr, static_cast<bf16*>(out), work,
-                                   batch, frames, beams, conv_blocks,
-                                   fc1_splits, st);
-  return forward<false, TX, float>(x, tr, static_cast<float*>(out), work,
-                                   batch, frames, beams, conv_blocks,
-                                   fc1_splits, st);
+    return forward_bf16(x, tr, static_cast<bf16*>(out), work, batch, frames,
+                        beams, conv_blocks, fc1_splits, st);
+  return forward_f32(x, tr, static_cast<float*>(out), work, batch, frames,
+                     beams, conv_blocks, fc1_splits, st);
 }
 
 }  // namespace
@@ -115,7 +143,7 @@ extern "C" long long trunk_fwd_workspace_floats(int batch, int frames,
 // wf, bf of struct Trunk; out (2, B, 256), float32 or (bf16_mode) bf16;
 // work: work_floats floats.  The plan: conv_blocks conv blocks per trunk
 // (trunk_conv.cuh, block_samples), fc1_splits ranges of fc1's K.  bf16_mode:
-// the bf16 mode of trunk_bf16.cuh.  Returns cudaErrorInvalidValue for shapes
+// the bf16 mode (tensor cores).  Returns cudaErrorInvalidValue for shapes
 // the kernels do not take (see trunk_conv.cuh), a plan that leaves a range
 // empty, or too little workspace.
 extern "C" int trunk_fwd_launch(const void* x, const void* const* w,

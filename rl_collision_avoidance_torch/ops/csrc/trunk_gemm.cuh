@@ -1,6 +1,12 @@
-// The product core of the twin-trunk kernels: C = A B per trunk, register
-// tiled, float32 FMA only (no tensor cores, no TF32).  trunk_fwd.cu runs fc1
-// on it; trunk_bwd.cu the fc1 recompute, dWf and dflat.
+// The float32 mode's product core of the twin-trunk kernels: C = A B per
+// trunk, register tiled, float32 FMA only (no tensor cores, no TF32: the
+// exact-f32 rule).  trunk_fwd.cu runs fc1 on it; trunk_bwd.cu the fc1
+// recompute, dWf and dflat.  The bf16 mode's products run on the tensor
+// cores instead (trunk_mma.cuh), which shares this file's Gemm, epilogues,
+// cp.async helpers and split-K reduce.
+//
+// What bounds it on an H100: the 67 TFLOP/s FFMA peak; fc1 at B = 32,768 is
+// 0.14 TFLOP, ~2.1 ms at that peak.
 //
 // A block owns a kBM x kBN tile of C; its 256 threads own 8 x 8 outputs
 // each.  Shared memory is a ring of kStages stages filled by 16-byte
@@ -11,15 +17,6 @@
 // rows of kBM floats (float4 chunks 4t and 64 + 4t per thread).  Either way
 // a thread reads its fragments as float4 and adds the k terms of each
 // output in order, k = 0, 1, ..., so a tile shape changes no rounding.
-//
-// Operand and output types (trunk_bf16.cuh): A may be bf16 in memory (TA;
-// k-contiguous only): its tiles land by cp.async in a ring of their own,
-// and once they have landed each thread widens the chunk it copied into
-// the float tile, before the barrier that lets the block read it, so the
-// FMA loop is the float32 one.  B is float32 and, in bf16 mode (kRoundB),
-// each thread rounds the chunks it copied to bf16 in place at the same
-// point.  C may be bf16 (TC), rounded from the float32 epilogue; the
-// epilogue's aux may be bf16 (TAux).
 //
 // Split-K: with splits > 1, block z = trunk * splits + s sums only the k
 // tiles [s * kchunk, (s + 1) * kchunk) and writes its plain sum to
@@ -40,11 +37,8 @@ constexpr int kGemmThreads = 256;        // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kPad = 4;                  // floats after each k-contiguous row
 constexpr int kTileFloats = kBM * (kBK + kPad);  // one operand, one stage
 
-// Shared memory of a product whose A is TA: the float ring of both
-// operands and, for a bf16 A, the ring its kBM x kBK tiles land in.
-template <class TA>
-constexpr int kGemmSmemBytes = 2 * kStages * kTileFloats * 4 +
-                               (sizeof(TA) == 2 ? kStages * kBM * kBK * 2 : 0);
+// Shared memory of a product: the ring of both operands.
+constexpr int kGemmSmemBytes = 2 * kStages * kTileFloats * 4;
 constexpr int kReduceThreads = 256;
 
 // kStore: the sum.  kBiasRelu: max(sum + bias[n], 0) (fc1 forward).
@@ -56,11 +50,12 @@ enum Epilogue { kStore = 0, kBiasRelu = 1, kBiasReluGrad = 2,
 
 // Per trunk t: element (m, k) of A at a[t][m * lda + k] when A is
 // k-contiguous, else at a[t][k * lda + m]; (k, n) of B at b[t][n * ldb + k]
-// when B is k-contiguous, else at b[t][k * ldb + n].  a, c and aux point at
-// the run_gemm instance's TA, TC and TAux.
+// when B is k-contiguous, else at b[t][k * ldb + n].  a and b are float
+// (this core) or bf16 (trunk_mma.cuh); c and aux point at the instance's TC
+// and TAux.
 struct Gemm {
   const void* a[2];
-  const float* b[2];
+  const void* b[2];
   void* c[2];
   const float* bias[2];
   const void* aux[2];
@@ -105,65 +100,27 @@ __device__ __forceinline__ int frag_index(int t, int i) {
 }
 
 // One operand's k tile [k0, k0 + kBK) x rows [r0, r0 + 128) into shared
-// memory in 16-byte chunks: for float, 512 chunks of 4, two per thread; for
-// a (k-contiguous) bf16 operand, 256 chunks of 8, one per thread, as dense
-// rows of kBK (widen_tile makes them float rows).  Chunks outside the
-// operand (rows >= nrows, k >= nk) are zero-filled; the host guarantees
-// that a chunk is either wholly inside or wholly outside.
-template <bool kKContig, class T>
-__device__ __forceinline__ void load_tile(T* s, const T* g, long long ld,
-                                          int r0, int nrows, int k0, int nk,
-                                          int tid) {
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int c = tid + kGemmThreads * q;
-      if (kKContig) {
-        const int r = c >> 2, kq = (c & 3) * 4;
-        const bool ok = r0 + r < nrows && k0 + kq < nk;
-        cp_async16(s + r * (kBK + kPad) + kq,
-                   ok ? g + (r0 + r) * ld + k0 + kq : g, ok);
-      } else {
-        const int kk = c >> 5, rq = (c & 31) * 4;
-        const bool ok = k0 + kk < nk && r0 + rq < nrows;
-        cp_async16(s + kk * kBM + rq, ok ? g + (k0 + kk) * ld + r0 + rq : g,
-                   ok);
-      }
-    }
-  } else {
-    static_assert(kKContig, "a bf16 operand must be k-contiguous");
-    const int r = tid >> 1, kq = (tid & 1) * 8;
-    const bool ok = r0 + r < nrows && k0 + kq < nk;
-    cp_async16(s + r * kBK + kq, ok ? g + (r0 + r) * ld + k0 + kq : g, ok);
-  }
-}
-
-// The bf16 chunk load_tile copied for this thread from a k-contiguous tile
-// at raw, widened into the float tile at s (after it has landed).
-__device__ __forceinline__ void widen_tile(const bf16* raw, float* s,
-                                           int tid) {
-  const int r = tid >> 1, kq = (tid & 1) * 8;
-  const uint4 u = *reinterpret_cast<const uint4*>(raw + r * kBK + kq);
-  float* d = s + r * (kBK + kPad) + kq;
-  *reinterpret_cast<float4*>(d) =
-      make_float4(bf16_half<false>(u.x), bf16_half<true>(u.x),
-                  bf16_half<false>(u.y), bf16_half<true>(u.y));
-  *reinterpret_cast<float4*>(d + 4) =
-      make_float4(bf16_half<false>(u.z), bf16_half<true>(u.z),
-                  bf16_half<false>(u.w), bf16_half<true>(u.w));
-}
-
-// Round to bf16, in place, the float chunks load_tile copied for this
-// thread into the stage at s (after they have landed).
+// memory in 16-byte chunks: 512 chunks of 4 floats, two per thread.  Chunks
+// outside the operand (rows >= nrows, k >= nk) are zero-filled; the host
+// guarantees that a chunk is either wholly inside or wholly outside.
 template <bool kKContig>
-__device__ __forceinline__ void round_tile(float* s, int tid) {
+__device__ __forceinline__ void load_tile(float* s, const float* g,
+                                          long long ld, int r0, int nrows,
+                                          int k0, int nk, int tid) {
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     const int c = tid + kGemmThreads * q;
-    float* v = kKContig ? s + (c >> 2) * (kBK + kPad) + (c & 3) * 4
-                        : s + (c >> 5) * kBM + (c & 31) * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = round_bf16(v[i]);
+    if (kKContig) {
+      const int r = c >> 2, kq = (c & 3) * 4;
+      const bool ok = r0 + r < nrows && k0 + kq < nk;
+      cp_async16(s + r * (kBK + kPad) + kq,
+                 ok ? g + (r0 + r) * ld + k0 + kq : g, ok);
+    } else {
+      const int kk = c >> 5, rq = (c & 31) * 4;
+      const bool ok = k0 + kk < nk && r0 + rq < nrows;
+      cp_async16(s + kk * kBM + rq, ok ? g + (k0 + kk) * ld + r0 + rq : g,
+                 ok);
+    }
   }
 }
 
@@ -191,15 +148,14 @@ __device__ __forceinline__ float epilogue(const Gemm& p, int t, float v,
 }
 
 // Grid (n tiles, m tiles, 2 * splits).
-template <bool kAk, bool kBk, int kEpi, class TA, class TC, class TAux,
-          bool kRoundB>
+template <bool kAk, bool kBk, int kEpi>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
   static_assert(kAk || !kBk, "an m-contiguous A needs an n-contiguous B");
   extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.z / p.splits;
   const int split = blockIdx.z - t * p.splits;
-  const TA* a = static_cast<const TA*>(pick(p.a, t));
-  const float* b = pick(p.b, t);
+  const float* a = static_cast<const float*>(pick(p.a, t));
+  const float* b = static_cast<const float*>(pick(p.b, t));
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
@@ -216,17 +172,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
 
   auto stage_a = [&](int s) { return smem + s * 2 * kTileFloats; };
   auto stage_b = [&](int s) { return smem + s * 2 * kTileFloats + kTileFloats; };
-  // a bf16 A's own ring, after the float one
-  auto raw_a = [&](int s) {
-    return reinterpret_cast<TA*>(smem + 2 * kStages * kTileFloats) +
-           s * kBM * kBK;
-  };
   auto load = [&](int s, int kt) {
     const int k0 = (kt0 + kt) * kBK;
-    if constexpr (sizeof(TA) == 2)
-      load_tile<kAk>(raw_a(s), a, p.lda, m0, p.m, k0, p.k, tid);
-    else
-      load_tile<kAk>(stage_a(s), a, p.lda, m0, p.m, k0, p.k, tid);
+    load_tile<kAk>(stage_a(s), a, p.lda, m0, p.m, k0, p.k, tid);
     load_tile<kBk>(stage_b(s), b, p.ldb, n0, p.n, k0, p.k, tid);
   };
 
@@ -237,9 +185,6 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
   }
   for (int kt = 0; kt < nkt; ++kt) {
     cp_async_wait<kStages - 2>();
-    if constexpr (sizeof(TA) == 2)
-      widen_tile(raw_a(kt % kStages), stage_a(kt % kStages), tid);
-    if (kRoundB) round_tile<kBk>(stage_b(kt % kStages), tid);
     __syncthreads();
     // the stage refilled here was read in iteration kt - 1, which every
     // thread has finished at the barrier above
@@ -329,13 +274,14 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(Gemm p) {
       if (p.splits > 1)
         part[static_cast<long long>(m) * p.n + n] = acc[i][j];
       else
-        static_cast<TC*>(pick(p.c, t))[m * p.ldc + n] =
-            from_float<TC>(epilogue<kEpi, TAux>(p, t, acc[i][j], m, n));
+        static_cast<float*>(pick(p.c, t))[m * p.ldc + n] =
+            epilogue<kEpi, float>(p, t, acc[i][j], m, n);
     }
   }
 }
 
-// C[t] = epilogue(part[t][0] + part[t][1] + ...), in that order.
+// C[t] = epilogue(part[t][0] + part[t][1] + ...), in that order; C and aux
+// of type TC and TAux (float, or bf16 for the tensor-core core).
 template <int kEpi, class TC, class TAux>
 __global__ void __launch_bounds__(kReduceThreads) splitk_reduce(Gemm p) {
   const int t = blockIdx.y;
@@ -358,38 +304,46 @@ inline long long gemm_part_floats(int m, int n, int splits) {
   return splits > 1 ? 2LL * splits * m * n : 0;
 }
 
-// Enqueue the product (and its split-K reduce).  The host checks what the
-// 16-byte copies need: a k-contiguous operand's k and leading dimension, an
-// m- or n-contiguous operand's rows and leading dimension, multiples of 4
-// (8 for a bf16 A); and that the splits cover the k tiles with none empty.
-// TA, TC, TAux: A's, C's and the epilogue aux's types; kRoundB: round B to
-// bf16 (bf16 mode).
-template <bool kAk, bool kBk, int kEpi, class TA = float, class TC = float,
-          class TAux = float, bool kRoundB = false>
-cudaError_t run_gemm(const Gemm& p, cudaStream_t stream) {
-  const int ktiles = (p.k + kBK - 1) / kBK;
-  const int per = 16 / static_cast<int>(sizeof(TA));
-  const bool ok =
-      (kAk ? p.k % per == 0 : p.m % per == 0) && p.lda % per == 0 &&
-      (kBk ? p.k % 4 == 0 : p.n % 4 == 0) && p.ldb % 4 == 0 &&
-      p.splits >= 1 && p.kchunk >= 1 &&
-      static_cast<long long>(p.splits) * p.kchunk >= ktiles &&
-      static_cast<long long>(p.splits - 1) * p.kchunk < ktiles &&
-      (p.splits == 1 || p.part != nullptr);
-  if (!ok) return cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<kAk, kBk, kEpi, TA, TC, TAux, kRoundB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kGemmSmemBytes<TA>);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM, 2 * p.splits);
-  kernel<<<grid, kGemmThreads, kGemmSmemBytes<TA>, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess || p.splits == 1) return err;
+// The split-K checks both cores make: the splits cover the k tiles with
+// none empty, and partials have somewhere to go.
+inline bool splits_ok(const Gemm& p, int ktiles) {
+  return p.splits >= 1 && p.kchunk >= 1 &&
+         static_cast<long long>(p.splits) * p.kchunk >= ktiles &&
+         static_cast<long long>(p.splits - 1) * p.kchunk < ktiles &&
+         (p.splits == 1 || p.part != nullptr);
+}
+
+// Enqueue p's split-K reduce (after its product), when it has splits.
+template <int kEpi, class TC, class TAux>
+cudaError_t run_splitk_reduce(const Gemm& p, cudaStream_t stream) {
+  if (p.splits == 1) return cudaSuccess;
   const long long mn = static_cast<long long>(p.m) * p.n;
   const long long want = (mn + kReduceThreads - 1) / kReduceThreads;
   const dim3 rgrid(static_cast<unsigned>(want < 1024 ? want : 1024), 2);
   splitk_reduce<kEpi, TC, TAux><<<rgrid, kReduceThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Enqueue the product (and its split-K reduce).  The host checks what the
+// 16-byte copies need: a k-contiguous operand's k and leading dimension, an
+// m- or n-contiguous operand's rows and leading dimension, multiples of 4;
+// and that the splits cover the k tiles with none empty.
+template <bool kAk, bool kBk, int kEpi>
+cudaError_t run_gemm(const Gemm& p, cudaStream_t stream) {
+  const int ktiles = (p.k + kBK - 1) / kBK;
+  const bool ok =
+      (kAk ? p.k % 4 == 0 : p.m % 4 == 0) && p.lda % 4 == 0 &&
+      (kBk ? p.k % 4 == 0 : p.n % 4 == 0) && p.ldb % 4 == 0 &&
+      splits_ok(p, ktiles);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = gemm_kernel<kAk, kBk, kEpi>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM, 2 * p.splits);
+  kernel<<<grid, kGemmThreads, kGemmSmemBytes, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return run_splitk_reduce<kEpi, float, float>(p, stream);
 }
 
 }  // namespace trunk

@@ -16,10 +16,11 @@ product operand (scans, weights, activations, cotangents) is rounded to
 bf16 and the products accumulate in float32, the features come out as bf16
 and the cotangent comes in as bf16; the weights and their gradients stay
 float32.  The scans may be float32 or bf16 in either mode.  Both kernels are a
-conv pass and products on one shared core; :func:`plan` says how they cut a
-batch (conv blocks, split-K ranges) and sizes their workspace, which the
-wrappers allocate.  There is no fallback between kernel and plain
-version.  Where autograd needs the weights'
+conv pass and products on one shared core, per mode: float32 on the FFMA
+path, bf16 on the tensor cores; :func:`plan` says how they cut a batch
+(conv blocks, split-K ranges) and sizes their workspace, which the wrappers
+allocate.  There is no fallback between kernel and plain version, nor
+between the modes.  Where autograd needs the weights'
 gradients, :func:`twin_trunks` goes through :class:`TwinTrunks`, which pairs
 the two; like the JAX package's custom_vjp, it gives no gradient to the
 scans.
@@ -45,6 +46,9 @@ bwd_launches = 0
 #: Launches of either kernel by (kernel name, batch B, precision), cleared
 #: with the counts.
 launches_by_mode: collections.Counter = collections.Counter()
+#: Bytes of the workspace tensor each kernel's last launch allocated, by
+#: (kernel name, batch B, precision).
+workspace_bytes: dict = {}
 
 #: The kernels' modes, and the dtype of the features each gives.
 PRECISIONS = {"float32": torch.float32, "bf16": torch.bfloat16}
@@ -149,14 +153,19 @@ def twin_trunks_grads_plain(scans, act, crt, g,
     return tuple(grads[:6]), tuple(grads[6:])
 
 
-#: Constants of the kernels' launch plan, as ``csrc/trunk_gemm.cuh`` and
-#: ``csrc/trunk_conv.cuh`` define them: the product core's 128 x 128 block
-#: tile and 16-deep k tile, the forward conv pass's two samples per step,
-#: the frames and beam counts the kernels take.
+#: Constants of the kernels' launch plan, as ``csrc/trunk_gemm.cuh``,
+#: ``csrc/trunk_mma.cuh`` and ``csrc/trunk_conv.cuh`` define them: the
+#: product cores' 128 x 128 block tile and their k tiles (16 deep on the
+#: float32 FFMA core, 32 on the bf16 tensor-core core), the forward conv
+#: pass's two samples per step, the frames and beam counts the kernels take.
 GEMM_TILE, GEMM_K_TILE = 128, 16
+K_TILES = {"float32": GEMM_K_TILE, "bf16": 32}
 FWD_GROUP = 2
 MAX_FRAMES = 6
 MAX_SPLITS = 16
+#: bf16 mode: the row ranges of g1 whose sums dbf adds
+#: (``csrc/trunk_bwd.cu::kBiasRanges``).
+BIAS_RANGES = 64
 #: Blocks of the product core and of the conv passes that fit on one SM.
 BLOCKS_PER_SM = 2
 #: The SM count the plan assumes when it is not given one (an H100 SXM).
@@ -225,45 +234,72 @@ class Plan:
         return _weight_shapes(self.frames, self.beams)["wf"][1]
 
     @property
+    def l2(self) -> int:
+        """conv2 positions: columns of one channel in the flat features."""
+        return self.nflat // 32
+
+    @property
+    def k_tile(self) -> int:
+        """The product core's k tile in this mode."""
+        return K_TILES[self.precision]
+
+    @property
     def fc1_kchunk(self) -> int:
         """k tiles per fc1 split range (K = nflat)."""
-        return ceil_div(ceil_div(self.nflat, GEMM_K_TILE), self.fc1_splits)
+        return ceil_div(ceil_div(self.nflat, self.k_tile), self.fc1_splits)
 
     @property
     def dwf_kchunk(self) -> int:
         """k tiles per dWf split range (K = the batch)."""
-        return ceil_div(ceil_div(self.batch, GEMM_K_TILE), self.dwf_splits)
+        return ceil_div(ceil_div(self.batch, self.k_tile), self.dwf_splits)
+
+    def products(self) -> dict[str, tuple[int, int, int, int, int]]:
+        """(M, N, K, splits, k tiles per split) of each product, as the
+        kernels launch them: the grid is (N tiles, M tiles, 2 x splits) and
+        split s sums k tiles [s chunk, (s + 1) chunk)."""
+        b, nflat = self.batch, self.nflat
+        return {"fc1": (b, 256, nflat, self.fc1_splits, self.fc1_kchunk),
+                "g1": (b, 256, nflat, self.fc1_splits, self.fc1_kchunk),
+                "dWf": (256, nflat, b, self.dwf_splits, self.dwf_kchunk),
+                "dflat": (b, nflat, 256, 1, 256 // self.k_tile)}
 
     def _part(self, m: int, n: int, splits: int) -> int:
         return 2 * splits * m * n if splits > 1 else 0
 
     def fwd_regions(self) -> dict[str, tuple[int, int]]:
         """(offset, floats) of each part of the forward's workspace: the flat
-        features (2, B, nflat), float32 or (bf16 mode) bf16, then fc1's
-        split-K partials."""
-        flat = 2 * self.batch * self.nflat
+        features (2, B, nflat), float32 or (bf16 mode) bf16; in bf16 mode
+        the fc1 weight (2, 256, nflat) as bf16; then fc1's split-K
+        partials."""
+        b, nflat = self.batch, self.nflat
+        part = self._part(b, 256, self.fc1_splits)
         if self.precision == "bf16":
-            flat //= 2
-        return {"flat": (0, flat),
-                "fc1_part": (flat, self._part(self.batch, 256,
-                                              self.fc1_splits))}
+            return _packed((("flat", b * nflat), ("wf16", 256 * nflat),
+                            ("fc1_part", part)))
+        return _packed((("flat", 2 * b * nflat), ("fc1_part", part)))
 
     def bwd_regions(self) -> dict[str, tuple[int, int]]:
         """(offset, floats) of each part of the backward's workspace: the
-        flat features (g2 later; float32 in both modes), g1, the conv blocks'
-        partials, and the split-K partials of fc1's recompute and of dWf,
-        which share a region."""
+        flat features (g2 later), g1, the conv blocks' partials, and the
+        split-K partials of fc1's recompute and of dWf, which share a
+        region.  In bf16 mode the flat features and g1 are bf16 (half the
+        floats), and the bf16 fc1 weight (2, 256, nflat), dflat's column
+        sums for db2 (2, M tiles, nflat) and dbf's sums over BIAS_RANGES
+        row ranges of g1 join them."""
         b, nflat = self.batch, self.nflat
         psize = 32 * self.frames * 5 + 32 + 32 * 32 * 3 + 32
-        out, at = {}, 0
-        for name, n in (("flat", 2 * b * nflat), ("g1", 2 * b * 256),
-                        ("conv_part", 2 * self.conv_blocks * psize),
-                        ("k_part", max(self._part(b, 256, self.fc1_splits),
-                                       self._part(256, nflat,
-                                                  self.dwf_splits)))):
-            out[name] = (at, n)
-            at += n
-        return out
+        k_part = max(self._part(b, 256, self.fc1_splits),
+                     self._part(256, nflat, self.dwf_splits))
+        conv_part = 2 * self.conv_blocks * psize
+        if self.precision == "bf16":
+            mtiles = ceil_div(b, GEMM_TILE)
+            return _packed((("flat", b * nflat), ("g1", b * 256),
+                            ("wf16", 256 * nflat), ("conv_part", conv_part),
+                            ("db2_part", 2 * mtiles * nflat),
+                            ("bias_part", 2 * BIAS_RANGES * 256),
+                            ("k_part", k_part)))
+        return _packed((("flat", 2 * b * nflat), ("g1", 2 * b * 256),
+                        ("conv_part", conv_part), ("k_part", k_part)))
 
     @property
     def fwd_workspace(self) -> int:
@@ -274,19 +310,29 @@ class Plan:
         return sum(self.bwd_regions()["k_part"])
 
 
+def _packed(sizes) -> dict[str, tuple[int, int]]:
+    """(offset, floats) of regions laid out back to back in this order."""
+    out, at = {}, 0
+    for name, n in sizes:
+        out[name] = (at, n)
+        at += n
+    return out
+
+
 def plan(batch: int, frames: int, beams: int, sms: int = H100_SMS,
          precision: str = "float32") -> Plan:
     """The launch plan for ``batch`` samples on a card with ``sms`` SMs: the
     conv passes give each trunk ``sms`` blocks, or one a sample group where
     there are fewer groups (two trunks, two blocks an SM: one wave), and
-    the products split K where their tiles alone would fill the card's
-    block slots poorly."""
+    the products split K (in the mode's k tiles) where their tiles alone
+    would fill the card's block slots poorly."""
     nflat = _weight_shapes(frames, beams)["wf"][1]
     slots = BLOCKS_PER_SM * sms
+    k_tile = K_TILES[precision]
     fc1 = k_splits(2 * ceil_div(batch, GEMM_TILE) * ceil_div(256, GEMM_TILE),
-                   ceil_div(nflat, GEMM_K_TILE), slots)
+                   ceil_div(nflat, k_tile), slots)
     dwf = k_splits(2 * ceil_div(256, GEMM_TILE) * ceil_div(nflat, GEMM_TILE),
-                   ceil_div(batch, GEMM_K_TILE), slots)
+                   ceil_div(batch, k_tile), slots)
     return Plan(batch, frames, beams, min(ceil_div(batch, FWD_GROUP), sms),
                 fc1, dwf, precision)
 
@@ -324,13 +370,13 @@ def _launchers():
 def workspace_counters():
     """The kernels' own workspace counts, ``trunk_fwd_workspace_floats(B,
     F, NB, fc1_splits, bf16_mode)`` and ``trunk_bwd_workspace_floats(B, F,
-    NB, conv_blocks, fc1_splits, dwf_splits)``: what the launchers hold the
-    wrapper's workspace to."""
+    NB, conv_blocks, fc1_splits, dwf_splits, bf16_mode)``: what the
+    launchers hold the wrapper's workspace to."""
     lib = build.library()
     i = ctypes.c_int
     fwd, bwd = lib.trunk_fwd_workspace_floats, lib.trunk_bwd_workspace_floats
     fwd.argtypes, fwd.restype = [i] * 5, ctypes.c_longlong
-    bwd.argtypes, bwd.restype = [i] * 6, ctypes.c_longlong
+    bwd.argtypes, bwd.restype = [i] * 7, ctypes.c_longlong
     return fwd, bwd
 
 
@@ -407,6 +453,7 @@ def _kernel_forward(scans, weights, precision: str) -> torch.Tensor:
     global launches
     launches += 1
     launches_by_mode["twin_trunks", b, precision] += 1
+    workspace_bytes["twin_trunks", b, precision] = work.nbytes
     return out
 
 
@@ -497,6 +544,7 @@ def _kernel_grads(scans, weights, g, precision: str) -> tuple[tuple, tuple]:
         global bwd_launches
         bwd_launches += 1
         launches_by_mode["twin_trunks_grads", b, precision] += 1
+        workspace_bytes["twin_trunks_grads", b, precision] = work.nbytes
     act, crt = (tuple(part.view(shapes[n]) for part, n in
                       zip(row.split(sizes), WEIGHT_NAMES)) for row in grads)
     return act, crt

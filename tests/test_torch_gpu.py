@@ -134,7 +134,7 @@ def test_trunk_workspace_plan_matches_the_kernels(cuda, batch):
         assert fwd(batch, 3, 512, pl.fc1_splits,
                    precision == "bf16") == pl.fwd_workspace
         assert bwd(batch, 3, 512, pl.conv_blocks, pl.fc1_splits,
-                   pl.dwf_splits) == pl.bwd_workspace
+                   pl.dwf_splits, precision == "bf16") == pl.bwd_workspace
 
 
 def test_trunk_kernel_refuses_unsupported_scans(cuda):
@@ -466,3 +466,91 @@ def test_bf16_training_update_on_the_card(cuda):
     for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
         assert torch.isfinite(torch.tensor(m[k])), k
     assert all(p.dtype == torch.float32 for p in state.policy.parameters())
+
+
+# ---------------------------------------------------------------------------
+# The bf16 mode on the tensor cores (csrc/trunk_mma.cuh, trunk_conv_mma.cuh,
+# conv_bwd_mma_kernel): ragged batches against the 128-row tiles, beam counts
+# whose conv2 channels split or share the 128-column N tiles (64: L2 = 16;
+# 720: L2 = 180), and conv1's one or two k16 steps (1 and 3 frames: 5 and 15
+# taps; 6 frames: 30)
+# ---------------------------------------------------------------------------
+
+#: (frames, beams, batch)
+TENSOR_CORE_SHAPES = [(3, 512, 33), (3, 512, 768), (3, 512, 1000),
+                      (3, 512, 3072), (3, 512, 32768), (1, 64, 33),
+                      (6, 64, 1000), (1, 720, 768), (6, 720, 1000),
+                      (3, 720, 3072), (6, 512, 32768)]
+
+
+@pytest.mark.parametrize("scans_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frames,beams,batch", TENSOR_CORE_SHAPES)
+def test_trunk_tensor_core_kernels_match_plain(cuda, frames, beams, batch,
+                                               scans_dtype):
+    """The bf16 forward and backward against the plain bf16 version, held
+    as chip_smoke.py holds them (check_features, check_grads against the
+    float64 plain version)."""
+    import chip_smoke
+
+    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch, scans_dtype,
+                                   seed=frames + beams + batch)
+    g = torch.randn(2, batch, 256, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        got = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
+        want = trunk_cuda.twin_trunks_plain(scans, act, crt, "bf16")
+    torch.cuda.synchronize()
+    chip_smoke.check_features(got, want, "bf16", f"B = {batch}")
+    grads = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
+    f64 = lambda ws: [w.double() for w in ws]
+    ref = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
+                                             f64(crt), g.double(), "bf16")
+    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g, "bf16")
+    torch.cuda.synchronize()
+    chip_smoke.check_grads([*grads[0], *grads[1]], [*ref[0], *ref[1]],
+                           limits, "bf16", f"B = {batch}")
+
+
+@pytest.mark.parametrize("frames,beams,batch", [(6, 720, 1000),
+                                                (3, 512, 32768)])
+def test_trunk_tensor_core_kernels_are_deterministic(cuda, frames, beams,
+                                                     batch):
+    """No float atomics in any bf16 pass: two launches bit-equal."""
+    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch, torch.float32)
+    g = torch.randn(2, batch, 256, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        first = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
+        second = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
+    assert torch.equal(first, second)
+    a = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
+    b = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
+    assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1]),
+                                                  (*b[0], *b[1])))
+
+
+def test_trunk_kernels_use_tensor_cores_in_bf16_mode_only(cuda):
+    """cuobjdump -sass of the built library: HMMA/HGMMA in every bf16
+    product, conv-pass and conv_bwd kernel, none in a float32 kernel."""
+    import chip_smoke
+
+    counts = chip_smoke.check_sass()
+    assert all(min(counts[n]) > 0 for n in chip_smoke.TENSOR_CORE_KERNELS)
+    assert all(max(counts[n]) == 0 for n in chip_smoke.FLOAT32_KERNELS)
+
+
+def test_trunk_float32_mode_unmoved_by_bf16_launches(cuda):
+    """The two modes share no mutable state: float32 features and gradients
+    bit-equal before and after bf16 launches on the same weights."""
+    scans, act, crt, g = _bwd_inputs(cuda, 1000, seed=4)
+
+    def f32():
+        with torch.no_grad():
+            feats = trunk_cuda.twin_trunks(scans, act, crt)
+        return [feats, *(x for pair in trunk_cuda.twin_trunks_grads(
+            scans, act, crt, g) for x in pair)]
+
+    before = f32()
+    with torch.no_grad():
+        trunk_cuda.twin_trunks(scans.bfloat16(), act, crt, "bf16")
+    trunk_cuda.twin_trunks_grads(scans, act, crt, g.bfloat16(), "bf16")
+    after = f32()
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
