@@ -22,7 +22,15 @@ path ran through the kernels, at those batch sizes, and stayed right:
   tensor cores, a bf16 policy tail, bf16 scans): stage-1 acting at 128
   arenas and stage-1 training at 32 arenas, with the bf16 trunk forward
   held to its plain bf16 version at B = 768, 3,072 and 32,768 and the bf16
-  backward at 32,768.
+  backward at 32,768;
+- Stage's exact 0.44 x 0.38 m box footprint (rect collision and box lidar
+  silhouettes; the lidar kernel's walls-only mode with the silhouettes in
+  plain PyTorch): stage1_rect training at 32 arenas warm-started from the
+  stage-1 weights (goal share >= 0.5, and one acting step against the plain
+  path), and the rect circle eval with the fine-tuned weights: the ring
+  (success 1.0, no collision), the ring culled to the 12 nearest robots
+  (success 1.0) and 16 arenas at 0.3 m of pose noise (success >= 0.70);
+  the device ms of the plain box silhouettes on each of these paths.
 
 Right after the build it reads the library's SASS (``cuobjdump -sass``):
 every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
@@ -61,7 +69,7 @@ CIRCLE_PARAMS = ROOT / "results" / "circle_ft_params.npz"
 #: The weights each world's checks and paths use: stage 2 warm-starts from
 #: stage 1, the circle eval and the fine-tune use the fine-tuned policy.
 WORLD_PARAMS = {"stage1": PARAMS, "stage2": PARAMS, "circle": CIRCLE_PARAMS,
-                "circle_train": CIRCLE_PARAMS}
+                "circle_train": CIRCLE_PARAMS, "stage1_rect": PARAMS}
 ARENAS = 128          # the JAX bench's accelerator default: 3,072 robots
 SLICE_STEPS = 256     # timed acting steps (after WARMUP_STEPS)
 WARMUP_STEPS = 8
@@ -84,6 +92,15 @@ EVAL_MIN_SUCCESS = 0.90   # the committed TPU value is 0.994375
 S2_ARENAS = 16        # the stage-2 phase of results/META.json
 S2_MIN_GOAL = 0.20    # results/stage2_metrics.csv reads 0.43, 0.58 at updates 1-2
 FT_ARENAS = 16        # the circle_ft phase of results/META.json
+# The rect footprint's committed TPU outcomes (results/circle_eval_rect.json):
+# the ring at success 1.0 with 0 collisions, culled to the 12 nearest at
+# 1.0, and 16 arenas at 0.3 m at a success mean of 0.835 with a std of
+# 0.195 over the arenas, a standard error of ~0.049: 0.70 lies about three
+# of them below.
+RECT_CULL_K = 12
+RECT_ARENAS = 16
+RECT_NOISE = 0.3
+RECT_MIN_SUCCESS = 0.70
 # The trunk backward kernel against the plain version in float64: each
 # gradient element within BWD_TOL of the sum of the absolute values of its
 # terms (the same backward on |g|, |W|, |x|).  A float32 sum of n terms taken
@@ -391,7 +408,7 @@ def test_poses(env, arenas: int):
     from rl_collision_avoidance_torch.ops import lidar_cuda
 
     spec = env.spec
-    if spec.name == "stage1":
+    if spec.name.startswith("stage1"):
         pose = stage1_test_poses(env, arenas)
     else:
         pose = env.sample_pose_goal(arenas)[0]
@@ -407,7 +424,10 @@ def test_poses(env, arenas: int):
 
 
 @phase("lidar kernel vs plain")
-def check_lidar(device, world: str, arenas: int):
+def check_lidar(device, world: str, arenas: int, discs: bool = True):
+    """The lidar kernel against its plain version on the world's test
+    poses; with ``discs=False`` its walls-only mode (record
+    ``lidar_obs_walls``), whose reference work is the walls part alone."""
     import torch
 
     from rl_collision_avoidance_torch.engine.celltable import lookup_cells
@@ -421,8 +441,8 @@ def check_lidar(device, world: str, arenas: int):
     pose = test_poses(env, arenas)
     args = (env._lidar_cells, t.lo, t.cell, t.shape, env.local_dirs,
             spec.robot_radius, spec.max_range)
-    got = lidar_cuda.lidar_obs(pose, *args)
-    want = lidar_cuda.lidar_obs_plain(pose, *args)
+    got = lidar_cuda.lidar_obs(pose, *args, discs=discs)
+    want = lidar_cuda.lidar_obs_plain(pose, *args, discs=discs)
     err = float((got - want).abs().max())
     if device.type == "cuda":
         torch.cuda.synchronize()  # a fault inside the kernel surfaces here
@@ -432,7 +452,8 @@ def check_lidar(device, world: str, arenas: int):
     equal = float((got == want).double().mean())
     err_adv = float((got[-1] - want[-1]).abs().max())
     short = float((got < 0.5 / spec.max_range - 0.5).any(-1).float().mean())
-    print(f"lidar: {world} K = {t.k}: max |kernel - plain| = {err:.3g} on "
+    name = "lidar_obs" if discs else "lidar_obs_walls"
+    print(f"lidar: {name} {world} K = {t.k}: max |kernel - plain| = {err:.3g} on "
           f"{tuple(got.shape)} (atol {LIDAR_ATOL}; {err_adv:.3g} on the last "
           f"arena), share of outputs bit-equal to plain {equal:.6f}; share "
           f"of robots with a beam under 0.5 m: {short:.2f}", flush=True)
@@ -442,13 +463,15 @@ def check_lidar(device, world: str, arenas: int):
     cand = int(torch.as_tensor(t.counts, device=device)[cells].sum())
     # The reference function's work, as in earlier records: per (robot,
     # beam) rotation 6, final min + normalize 4; per valid candidate segment
-    # 12; per other robot's disc 11.  The kernel skips more (csrc/lidar.cu:
-    # no division where the window fails, no far or enclosing disc), so
-    # this count is an upper bound of what it does.
-    ops = beams * (a * n * (6 + 4 + 11 * (n - 1)) + 12 * cand)
+    # 12; per other robot's disc 11 (none in the walls-only mode).  The
+    # kernel skips more (csrc/lidar.cu: no division where the window fails,
+    # no far or enclosing disc), so this count is an upper bound of what it
+    # does.
+    per_disc = 11 * (n - 1) if discs else 0
+    ops = beams * (a * n * (6 + 4 + per_disc) + 12 * cand)
     nbytes = 4 * (pose.numel() + t.table.size + env.local_dirs.numel()
                   + got.numel())
-    record = {"name": "lidar_obs", "route": "cuda",
+    record = {"name": name, "route": "cuda",
               "source": "rl_collision_avoidance_torch/ops/csrc/lidar.cu",
               "replaces": "rl_collision_avoidance_tpu/ops/lidar_pallas.py:35",
               "world": world, "batch": a * n, "precision": "float32",
@@ -456,9 +479,10 @@ def check_lidar(device, world: str, arenas: int):
               "workspace_bytes": None, "peak_bytes": None}
     if device.type == "cuda":
         record["ms"], record["host_us"] = time_ms(
-            lambda: lidar_cuda.lidar_obs(pose, *args), 50)
+            lambda: lidar_cuda.lidar_obs(pose, *args, discs=discs), 50)
         record["plain_ms"] = time_ms(
-            lambda: lidar_cuda.lidar_obs_plain(pose, *args), 10)[0]
+            lambda: lidar_cuda.lidar_obs_plain(pose, *args, discs=discs),
+            10)[0]
     record["bound_ms"], record["bound_by"] = bound(nbytes, ops)
     return record
 
@@ -603,16 +627,17 @@ def reset_counts():
     from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
 
     lidar_cuda.launches = trunk_cuda.launches = trunk_cuda.bwd_launches = 0
+    lidar_cuda.launches_by_mode.clear()
     trunk_cuda.launches_by_mode.clear()
 
 
-def read_counts(robots: int) -> dict:
-    """Launches since :func:`reset_counts` by (kernel, batch, precision);
-    the lidar, at ``robots``, runs in float32 in either mode."""
+def read_counts() -> dict:
+    """Launches since :func:`reset_counts` by (kernel, batch, precision):
+    the lidar (``lidar_obs``, or ``lidar_obs_walls`` in its walls-only
+    mode) runs in float32 in either mode."""
     from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
 
-    return {("lidar_obs", robots, "float32"): lidar_cuda.launches,
-            **trunk_cuda.launches_by_mode}
+    return {**lidar_cuda.launches_by_mode, **trunk_cuda.launches_by_mode}
 
 
 @phase("stage-1 acting slice")
@@ -649,7 +674,7 @@ def run_slice(device, card: str, bf16: bool = False):
         end.record()
         torch.cuda.synchronize()
     robots = ARENAS * spec.n_robots
-    launches = read_counts(robots)
+    launches = read_counts()
 
     ends = (warm["ends"] + stats["ends"]).tolist()
     goal, crash, timeout = ends[1:]
@@ -666,7 +691,7 @@ def run_slice(device, card: str, bf16: bool = False):
               f"[{card}]", flush=True)
     if not finite:
         raise AssertionError("non-finite reward or observation in the slice")
-    if on_card and not (launches[("lidar_obs", robots, "float32")]
+    if on_card and not (launches.get(("lidar_obs", robots, "float32"))
                         and set(launches) == {
                             ("lidar_obs", robots, "float32"),
                             ("twin_trunks", robots, precision)}):
@@ -700,7 +725,8 @@ def compare_plain_step(env, policy, state, obs):
 
     precision = PRECISION[policy.dtype]
     plain_env = Env(env.spec, device=env.device, use_kernels=False,
-                    obs_dtype=env.obs_dtype)
+                    obs_dtype=env.obs_dtype, disc_cull_k=env.disc_cull_k,
+                    rect_silhouette=env.rect_silhouette)
     a, n = obs.scans.shape[:2]
     noise = torch.randn((a * n, 2), generator=env.generator,
                         device=env.device)
@@ -1044,7 +1070,8 @@ def run_training(device, card: str, cfg, params, updates: int,
         metrics.append(m)
         update_ms.append(ms)
     robots, mb = cfg.n_arenas * tr.spec.n_robots, cfg.ppo.batch_size
-    launches = read_counts(robots)
+    launches = read_counts()
+    lidar = "lidar_obs_walls" if tr.env.walls_only else "lidar_obs"
 
     steps = metrics[0]["env_steps"]
     keys = ("policy_loss", "value_loss", "entropy", "episodes", "reached",
@@ -1085,7 +1112,7 @@ def run_training(device, card: str, cfg, params, updates: int,
     # the rollout's horizon acting steps and its bootstrap at one arena
     # batch each, one forward and one backward for each PPO minibatch
     if device.type == "cuda" and launches != {
-            ("lidar_obs", robots, "float32"): updates * cfg.horizon,
+            (lidar, robots, "float32"): updates * cfg.horizon,
             ("twin_trunks", robots, precision): updates * (cfg.horizon + 1),
             ("twin_trunks", mb, precision): updates * steps_per_update,
             ("twin_trunks_grads", mb, precision):
@@ -1343,49 +1370,100 @@ def compare_minibatch_grads(tr, state, traj, last_value, f64: bool):
 
 
 @phase("circle eval")
-def run_circle(device, card: str, arenas: int, noise: float):
+def run_circle(device, card: str, arenas: int, noise: float,
+               footprint: str = "disc", cull_k: int | None = None):
     """The circle-50 eval through ``run_circle_eval`` with the fine-tuned
     weights, ``arenas`` arenas at ``noise`` m of pose noise, up to
-    EVAL_STEPS steps; prints the metrics beside the committed ones (TPU,
-    results/circle_eval.json) and the rate.  Returns the launches by (name,
-    batch)."""
+    EVAL_STEPS steps, with the world's ``footprint`` and, with ``cull_k``,
+    the silhouettes culled to the k nearest (``env_kwargs``); prints the
+    metrics beside the committed ones (TPU, results/circle_eval.json, or
+    results/circle_eval_rect.json for the box) and the rate.  Returns the
+    launches by (name, batch, precision)."""
+    import dataclasses
+
     import torch
 
     from rl_collision_avoidance_torch.eval import run_circle_eval
     from rl_collision_avoidance_torch.models import load_policy
+    from rl_collision_avoidance_torch.worlds import circle
 
+    rect = footprint == "rect"
+    spec = dataclasses.replace(circle(), footprint=footprint)
+    env_kwargs = {} if cull_k is None else {"disc_cull_k": cull_k}
+    source = "circle_eval_rect.json" if rect else "circle_eval.json"
+    key = ("rect_culled_deterministic" if cull_k else
+           "rect_jitter_0.3m" if noise else "rect_deterministic") if rect \
+        else ("jitter_0.1m" if noise else "deterministic")
+    committed = json.loads((ROOT / "results" / source).read_text())[key]
     policy = load_policy(CIRCLE_PARAMS, device=device)
-    committed = json.loads((ROOT / "results" / "circle_eval.json").read_text())
-    committed = committed["jitter_0.1m" if noise else "deterministic"]
     reset_counts()
     t0 = time.perf_counter()
-    metrics = run_circle_eval(policy, max_steps=EVAL_STEPS, seed=SEED,
-                              n_arenas=arenas, pose_noise=noise)
+    metrics = run_circle_eval(policy, spec, max_steps=EVAL_STEPS, seed=SEED,
+                              n_arenas=arenas, pose_noise=noise,
+                              env_kwargs=env_kwargs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     robots = arenas * 50
-    launches = read_counts(robots)
-    steps = launches[("twin_trunks", robots, "float32")]   # one a step
-    print(f"circle eval: {arenas} arena(s) at {noise} m: port (card) "
+    launches = read_counts()
+    steps = launches.get(("twin_trunks", robots, "float32"), 0)  # one a step
+    what = (f"circle eval ({footprint}"
+            + (f", culled to {cull_k}" if cull_k else "") + ")")
+    print(f"{what}: {arenas} arena(s) at {noise} m: port (card) "
           f"{json.dumps(metrics)}", flush=True)
-    print(f"circle eval: {arenas} arena(s) at {noise} m: committed (TPU, "
-          f"results/circle_eval.json) {json.dumps(committed)}", flush=True)
-    print(f"circle eval: {steps} steps of {robots} robots in {wall:.2f} s "
+    print(f"{what}: {arenas} arena(s) at {noise} m: committed (TPU, "
+          f"results/{source} {key}) {json.dumps(committed)}", flush=True)
+    print(f"{what}: {steps} steps of {robots} robots in {wall:.2f} s "
           f"wall = {robots * steps / wall:.1f} robot-steps/s (all robots had "
           f"a result by step {steps}, or the limit); kernel launches (name, "
           f"batch, precision): {launches} [{card}]", flush=True)
+    lidar = ("lidar_obs_walls" if rect or cull_k else "lidar_obs", robots,
+             "float32")
     if device.type == "cuda" and not (
-            launches[("lidar_obs", robots, "float32")]
-            and set(launches) == {("lidar_obs", robots, "float32"),
-                                  ("twin_trunks", robots, "float32")}):
+            launches.get(lidar) and set(launches) == {
+                lidar, ("twin_trunks", robots, "float32")}):
         raise AssertionError(f"a kernel of the eval never ran, or ran at "
                              f"another batch: {launches}")
-    if arenas > 1 and not metrics["success_rate_mean"] >= EVAL_MIN_SUCCESS:
-        raise AssertionError(f"circle eval success_rate_mean "
-                             f"{metrics['success_rate_mean']} < "
-                             f"{EVAL_MIN_SUCCESS} over {arenas} arenas")
+    if not rect:
+        if arenas > 1 and not metrics["success_rate_mean"] >= EVAL_MIN_SUCCESS:
+            raise AssertionError(f"circle eval success_rate_mean "
+                                 f"{metrics['success_rate_mean']} < "
+                                 f"{EVAL_MIN_SUCCESS} over {arenas} arenas")
+    elif arenas > 1:
+        if not metrics["success_rate_mean"] >= RECT_MIN_SUCCESS:
+            raise AssertionError(f"{what}: success_rate_mean "
+                                 f"{metrics['success_rate_mean']} < "
+                                 f"{RECT_MIN_SUCCESS} over {arenas} arenas")
+    elif not (metrics["success_rate"] == 1.0 and metrics["collisions"] == 0):
+        raise AssertionError(f"{what}: the ring reached success "
+                             f"{metrics['success_rate']} with "
+                             f"{metrics['collisions']} collisions (the "
+                             f"committed TPU run: 1.0, 0)")
     return launches
+
+
+@phase("box silhouettes")
+def time_silhouettes(device, card: str, world: str, arenas: int,
+                     cull_k: int | None = None) -> dict:
+    """Device ms and host us a call of the other robots' box silhouettes
+    (``Env.silhouette_obs``: plain PyTorch, no TPU kernel) at the world's
+    test poses, every box or the ``cull_k`` nearest."""
+    import dataclasses
+
+    from rl_collision_avoidance_torch.engine.env import Env
+    from rl_collision_avoidance_torch.worlds import get_world
+
+    spec = dataclasses.replace(get_world(world), footprint="rect")
+    env = Env(spec, device=device, seed=SEED, disc_cull_k=cull_k)
+    pose = test_poses(env, arenas)
+    a, n = pose.shape[:2]
+    boxes = min(cull_k or n - 1, n - 1)
+    out = {"name": "box_silhouettes", "route": "plain PyTorch, no TPU kernel",
+           "world": world, "batch": a * n, "boxes_per_robot": boxes,
+           "intermediate_bytes": 4 * a * n * spec.n_beams * boxes}
+    out["ms"], out["host_us"] = time_ms(lambda: env.silhouette_obs(pose), 20)
+    print(f"silhouettes: {json.dumps(out)} [{card}]", flush=True)
+    return out
 
 
 @phase("checkpoint round trip")
@@ -1475,7 +1553,14 @@ def main() -> int:
               check_trunk(device, "stage1", TRAIN_ARENAS * n["stage1"],
                           "bf16"),
               check_trunk(device, "stage1", BWD_BATCH, "bf16"),
-              check_trunk_bwd(device, "stage1", BWD_BATCH, "bf16")]
+              check_trunk_bwd(device, "stage1", BWD_BATCH, "bf16"),
+              check_lidar(device, "stage1_rect", TRAIN_ARENAS, discs=False),
+              check_trunk(device, "stage1_rect", TRAIN_ARENAS * n["stage1"]),
+              check_trunk(device, "stage1_rect", BWD_BATCH),
+              check_trunk_bwd(device, "stage1_rect", BWD_BATCH),
+              check_lidar(device, "circle", 1, discs=False),
+              check_lidar(device, "circle", RECT_ARENAS, discs=False),
+              check_trunk(device, "circle", RECT_ARENAS * n["circle"])]
     pass_times(device)
     records = {(r["name"], r["world"], r["batch"], r["precision"]): r
                for r in checks}
@@ -1503,6 +1588,28 @@ def main() -> int:
     paths.append(("circle fine-tune", "circle_train", phase(
         "circle fine-tune")(run_training)(device, label, ft, CIRCLE_PARAMS, 1,
                                           None, f64=True)[0]))
+    # the box footprint: stage1_rect training, then one acting step of its
+    # state against the plain path, and the rect circle eval
+    s1_rect = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED,
+                                 world="stage1_rect")
+    launches, tr, state = phase("stage1_rect training")(run_training)(
+        device, label, s1_rect, PARAMS, 1 + TRAIN_UPDATES, 0.5)
+    paths.append(("training, rect", "stage1_rect", launches))
+    compare_plain_step(tr.env, state.policy, state.env_state,
+                       tr.env.obs(state.env_state))
+    del tr, state
+    paths += [("circle eval, rect, 1 arena", "circle",
+               run_circle(device, label, 1, 0.0, "rect")),
+              (f"circle eval, rect culled to {RECT_CULL_K}, 1 arena",
+               "circle", run_circle(device, label, 1, 0.0, "rect",
+                                    RECT_CULL_K)),
+              (f"circle eval, rect, {RECT_ARENAS} arenas", "circle",
+               run_circle(device, label, RECT_ARENAS, RECT_NOISE, "rect"))]
+    silhouettes = [time_silhouettes(device, label, "stage1_rect",
+                                    TRAIN_ARENAS),
+                   time_silhouettes(device, label, "circle", 1),
+                   time_silhouettes(device, label, "circle", 1, RECT_CULL_K),
+                   time_silhouettes(device, label, "circle", RECT_ARENAS)]
     keys = ("name", "path", "world", "batch", "precision", "route", "source",
             "replaces", "launches", "max_abs_err", "ms", "host_us",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1515,6 +1622,8 @@ def main() -> int:
             for k in kernels} != set(records):
         raise AssertionError("a checked shape is not on a path, or a path's "
                              "shape was not checked")
+    print(f"silhouettes (device ms a call, plain PyTorch): "
+          f"{json.dumps(silhouettes)}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))

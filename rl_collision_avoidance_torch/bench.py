@@ -13,7 +13,11 @@ GAE, PPO forward, trunk backward kernel, the rest of autograd, Adam) for
 training.  ``--bf16`` runs the policy in bf16 (the trunk kernels' bf16
 mode) and ``--obs-bf16`` stores the scans in bf16, as the JAX bench's
 flags do; ``--f32`` forces both off.  Unlike the JAX acting bench, whose
-default is bf16, both modes here default to float32.  Usage::
+default is bf16, both modes here default to float32.  ``--footprint rect``
+runs the acting bench with Stage's exact box footprint (collision and lidar
+silhouettes) and ``--disc-cull K`` culls the silhouettes to each robot's K
+nearest, as the JAX bench's flags do; ``--train --world stage1_rect``
+trains on the box footprint.  Usage::
 
     python -m rl_collision_avoidance_torch.bench --arenas 128 --steps 256
     python -m rl_collision_avoidance_torch.bench --bf16 --obs-bf16
@@ -21,10 +25,13 @@ default is bf16, both modes here default to float32.  Usage::
     python -m rl_collision_avoidance_torch.bench --train [--profile] --arenas 32
     python -m rl_collision_avoidance_torch.bench --train --profile \
         --world stage2 --arenas 16
+    python -m rl_collision_avoidance_torch.bench [--profile] --footprint rect
+    python -m rl_collision_avoidance_torch.bench --train --world stage1_rect
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 
@@ -78,17 +85,25 @@ def run_acting(env: Env, policy: CNNPolicy, state: EnvState, obs: Obs,
                         "finite": finite}
 
 
-def _mode(policy_dtype, obs_dtype) -> dict:
-    return {"policy_dtype": str(policy_dtype).removeprefix("torch."),
-            "obs_dtype": str(obs_dtype or torch.float32).removeprefix(
-                "torch.")}
+def _mode(policy_dtype, obs_dtype, footprint=None, disc_cull_k=None) -> dict:
+    out = {"policy_dtype": str(policy_dtype).removeprefix("torch."),
+           "obs_dtype": str(obs_dtype or torch.float32).removeprefix(
+               "torch.")}
+    if footprint is not None:
+        out["footprint"] = footprint
+    if disc_cull_k is not None:
+        out["disc_cull_k"] = disc_cull_k
+    return out
 
 
 def _warm_start(arenas, warmup, world, params, seed, policy_dtype,
-                obs_dtype):
-    """Env, policy and sampler on the card, after ``warmup`` acting steps."""
+                obs_dtype, footprint=None, disc_cull_k=None):
+    """Env, policy and sampler on the card, after ``warmup`` acting steps;
+    ``footprint`` overrides the world's."""
     spec = get_world(world)
-    env = Env(spec, seed=seed, obs_dtype=obs_dtype)
+    if footprint is not None:
+        spec = dataclasses.replace(spec, footprint=footprint)
+    env = Env(spec, seed=seed, obs_dtype=obs_dtype, disc_cull_k=disc_cull_k)
     policy = load_policy(params, device=env.device, frames=spec.laser_frames,
                          beams=spec.n_beams, dtype=policy_dtype)
     gen = torch.Generator(device=env.device)
@@ -101,10 +116,12 @@ def _warm_start(arenas, warmup, world, params, seed, policy_dtype,
 def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
             world: str = "stage1", params: str = DEFAULT_PARAMS,
             seed: int = 0, policy_dtype: torch.dtype = torch.float32,
-            obs_dtype: torch.dtype | None = None) -> dict:
+            obs_dtype: torch.dtype | None = None, footprint: str | None = None,
+            disc_cull_k: int | None = None) -> dict:
     """Robot-steps/s of the acting loop on the CUDA card."""
     env, policy, gen, state, obs = _warm_start(arenas, warmup, world, params,
-                                               seed, policy_dtype, obs_dtype)
+                                               seed, policy_dtype, obs_dtype,
+                                               footprint, disc_cull_k)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -114,7 +131,7 @@ def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
     seconds = start.elapsed_time(end) / 1e3
     robots = arenas * env.n_robots
     return {"metric": "acting robot-steps/s", "world": world,
-            **_mode(policy_dtype, obs_dtype),
+            **_mode(policy_dtype, obs_dtype, footprint, disc_cull_k),
             "arenas": arenas, "robots": robots, "steps": steps,
             "value": robots * steps / seconds,
             "ms_per_step": seconds * 1e3 / steps,
@@ -128,14 +145,16 @@ def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
 def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
             world: str = "stage1", params: str = DEFAULT_PARAMS,
             seed: int = 0, policy_dtype: torch.dtype = torch.float32,
-            obs_dtype: torch.dtype | None = None) -> dict:
+            obs_dtype: torch.dtype | None = None, footprint: str | None = None,
+            disc_cull_k: int | None = None) -> dict:
     """Device time by kernel over ``steps`` acting steps (torch.profiler),
     and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     env, policy, gen, state, obs = _warm_start(arenas, warmup, world, params,
-                                               seed, policy_dtype, obs_dtype)
+                                               seed, policy_dtype, obs_dtype,
+                                               footprint, disc_cull_k)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -154,7 +173,8 @@ def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
             launches += 1
     busy_ms = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    return {"world": world, **_mode(policy_dtype, obs_dtype),
+    return {"world": world,
+            **_mode(policy_dtype, obs_dtype, footprint, disc_cull_k),
             "arenas": arenas, "steps": steps,
             "ms_per_step": window_ms / steps,
             "device_ms_per_step": busy_ms / steps,
@@ -294,12 +314,24 @@ def parser() -> argparse.ArgumentParser:
                          "buffer)")
     ap.add_argument("--f32", action="store_true",
                     help="force the float32 configuration (the default)")
+    ap.add_argument("--footprint", choices=["disc", "rect"], default=None,
+                    help="acting: override the world's footprint (rect = "
+                         "Stage's exact 0.44 x 0.38 m box for collision and "
+                         "lidar silhouettes)")
+    ap.add_argument("--disc-cull", type=int, default=None, metavar="K",
+                    help="acting: opt-in approximate silhouette culling "
+                         "(each robot's beams test its K nearest other "
+                         "robots; not the exact configuration)")
     return ap
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
     dtypes = precision(args)
+    if args.train and (args.footprint or args.disc_cull is not None):
+        ap.error("--footprint and --disc-cull set the acting bench; train "
+                 "on the box footprint with --world stage1_rect")
     if args.train:
         arenas = args.arenas or 32
         out = (profile_training(arenas, args.world, args.seed, *dtypes)
@@ -310,7 +342,8 @@ def main(argv=None):
     else:
         run = profile if args.profile else measure
         out = run(args.arenas or 128, args.steps, args.warmup, args.world,
-                  args.params, args.seed, *dtypes)
+                  args.params, args.seed, *dtypes, args.footprint,
+                  args.disc_cull)
     print(json.dumps(out))
 
 

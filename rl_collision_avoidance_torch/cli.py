@@ -8,6 +8,10 @@
         --warm-start results/stage2_params.npz --updates 2 --arenas 16
     python -m rl_collision_avoidance_torch.cli circle-test \
         --params results/circle_ft_params.npz --arenas 32 --pose-noise 0.1
+    python -m rl_collision_avoidance_torch.cli train-stage1 \
+        --world stage1_rect --updates 5 --arenas 32
+    python -m rl_collision_avoidance_torch.cli circle-test \
+        --params results/circle_ft_params.npz --footprint rect
 
 Runs on the CUDA card (``--device cpu`` for the plain PyTorch path).  The
 training commands log through ``utils/metrics.MetricLogger`` into
@@ -88,6 +92,10 @@ def _add_circle(p):
     p.add_argument("--pose-noise", type=float, default=0.0,
                    help="uniform per-robot initial-pose jitter in meters "
                         "(arena 0 always stays the exact reference scenario)")
+    p.add_argument("--footprint", choices=["disc", "rect"], default="disc",
+                   help="robot footprint: disc (the default) or rect, "
+                        "Stage's exact 0.44 x 0.38 m box for collision and "
+                        "lidar silhouettes (results/circle_eval_rect.json)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
 
@@ -146,9 +154,12 @@ def train(stage: str, args) -> str:
 
 def circle_test(args) -> dict:
     """The circle-50 eval as ``args`` say; prints and returns the metrics."""
+    import dataclasses
+
     from .eval import run_circle_eval
     from .models import CNNPolicy, load_policy
     from .utils.device import resolve_device
+    from .worlds import circle
 
     if args.params:
         policy = load_policy(args.params, device=args.device)
@@ -161,7 +172,8 @@ def circle_test(args) -> dict:
             torch.manual_seed(0)
             policy = CNNPolicy()
         policy = policy.to(resolve_device(args.device)).eval()
-    metrics = run_circle_eval(policy, max_steps=args.max_steps,
+    spec = dataclasses.replace(circle(), footprint=args.footprint)
+    metrics = run_circle_eval(policy, spec, max_steps=args.max_steps,
                               seed=args.seed, n_arenas=args.arenas,
                               pose_noise=args.pose_noise)
     print(json.dumps(metrics), flush=True)

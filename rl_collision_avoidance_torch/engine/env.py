@@ -1,15 +1,17 @@
 """The batched collision-avoidance environment: A arenas x N robots per step.
 
-Counterpart of ``rl_collision_avoidance_tpu/engine/env.py`` for the disc
-footprint, in all three reset modes of the curriculum.  One step, as in the
-JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
+Counterpart of ``rl_collision_avoidance_tpu/engine/env.py``, for both
+footprints and in all three reset modes of the curriculum.  One step, as in
+the JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
 ``circle_world.py``):
 
 1. dead robots (stage-2 ``liveflag``, finished circle robots) act with
    v = 0, and w = 0 except in the circle eval, where they keep steering;
    live robots apply the action clipped to v in [0, 1], w in [-1, 1];
 2. diff-drive integration; a robot whose candidate pose overlaps a wall or
-   another robot keeps its previous pose (stall = crash);
+   another robot keeps its previous pose (stall = crash): discs of
+   ``robot_radius``, or for ``footprint="rect"`` Stage's exact 0.44 x 0.38 m
+   oriented boxes;
 3. reward and termination of the live robots (goal +15, crash -15,
    progress x 2.5, spin penalty on the realized w, timeout);
 4. episode resets inside the step: per robot (``RANDOM_DISC``), per
@@ -20,6 +22,11 @@ JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
 
 The lidar runs through ``ops/lidar_cuda.py::lidar_obs``: the hand-written
 kernel when the env lives on the CUDA card, its plain version on the CPU.
+With disc silhouettes it computes walls and discs in one launch.  With box
+silhouettes (``rect_silhouette``, the default of rect worlds) or
+``disc_cull_k`` < N it computes the walls alone, and the env adds the
+other robots' silhouettes in plain PyTorch (``engine/lidar.py::
+raycast_robots``: every box, or the k nearest boxes or discs).
 ``use_kernels=False`` runs the plain versions on any device, as the
 reference the kernel path is held against.  ``obs_dtype`` is the dtype
 the scan history is stored and emitted in (float32 by default;
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..ops import lidar_cuda   # a module: ops/lidar_cuda.py imports this package
@@ -40,7 +48,8 @@ from ..utils.device import resolve_device
 from ..worlds.spec import ResetMode, WorldSpec
 from . import physics, sampling
 from .celltable import build_cell_table, lookup_cells
-from .lidar import beam_directions_local, sparse_beam_index
+from .lidar import (beam_directions_local, raycast_robots, rotate_beams,
+                    sparse_beam_index)
 
 # Action bounds [[v_min, w_min], [v_max, w_max]] (ppo_stage1.py:170).
 V_MIN, V_MAX = 0.0, 1.0
@@ -92,14 +101,24 @@ def local_goal(pose: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
 
 class Env:
     """Batched env for one :class:`WorldSpec` on one device (the CUDA card
-    unless ``device`` says otherwise)."""
+    unless ``device`` says otherwise).
+
+    ``disc_cull_k``: opt-in approximate silhouette culling, as the JAX
+    env's: each robot's beams test only its k nearest other robots (discs,
+    or boxes with ``rect_silhouette``); exact while at most k robots are in
+    sensor range, and None (the default) is the exact configuration.
+    ``rect_silhouette``: ray-trace the other robots as their oriented
+    0.44 x 0.38 m boxes instead of discs; defaults to the world's
+    ``footprint == "rect"``."""
 
     def __init__(self, spec: WorldSpec, device=None, seed: int = 0,
-                 use_kernels: bool = True, obs_dtype: torch.dtype | None = None):
-        if spec.footprint != "disc":
-            raise NotImplementedError(
-                "the port runs the disc footprint; the rect footprint is "
-                "not ported yet")
+                 use_kernels: bool = True, obs_dtype: torch.dtype | None = None,
+                 disc_cull_k: int | None = None,
+                 rect_silhouette: bool | None = None):
+        if spec.footprint not in ("disc", "rect"):
+            raise ValueError(f"unknown footprint {spec.footprint!r}")
+        if disc_cull_k is not None and disc_cull_k < 1:
+            raise ValueError(f"disc_cull_k = {disc_cull_k} must be >= 1")
         self.spec = spec
         self.device = resolve_device(device)
         self.obs_dtype = obs_dtype or torch.float32
@@ -108,15 +127,30 @@ class Env:
         self.n_robots = spec.n_robots
         self.frames = spec.laser_frames
         self.obs_beams = spec.obs_beams or spec.n_beams
+        self.disc_cull_k = disc_cull_k
+        if rect_silhouette is None:
+            rect_silhouette = spec.footprint == "rect"
+        self.rect_silhouette = bool(rect_silhouette)
+        self._rect_dims = ((spec.rect_half_len, spec.rect_half_wid)
+                           if self.rect_silhouette else None)
+        # The lidar kernel computes walls and exact discs in one launch;
+        # boxes or culled discs are added to its walls-only mode.
+        self.walls_only = self.rect_silhouette or (
+            disc_cull_k is not None and disc_cull_k < spec.n_robots)
         as_tensor = lambda a: torch.as_tensor(a, device=self.device)
         # The lidar table pads K to a multiple of 8 as the JAX package's
         # kernel path does; the wall table only needs candidates within
-        # the robot radius, so K drops from 16 to 4 at stage 1.
+        # the footprint's reach, the robot radius or the box's
+        # circumradius, so K drops from 16 to 4 at stage 1.
+        reach = spec.robot_radius
+        if spec.footprint == "rect":
+            reach = max(reach, float(np.hypot(spec.rect_half_len,
+                                              spec.rect_half_wid)))
         self.lidar_table = build_cell_table(spec.seg_p, spec.seg_e,
                                             spec.seg_valid, spec.max_range,
                                             cell=1.0, pad_multiple=8)
         self.wall_table = build_cell_table(spec.seg_p, spec.seg_e,
-                                           spec.seg_valid, spec.robot_radius,
+                                           spec.seg_valid, reach,
                                            cell=1.0, pad_multiple=2)
         self._lidar_cells = as_tensor(self.lidar_table.table)
         self._wall_cells = as_tensor(self.wall_table.table)
@@ -144,13 +178,31 @@ class Env:
         """(A, N, 3) poses -> (A, N, obs_beams) normalized frame, range /
         max_range - 0.5, after the optional sparse resample, in
         ``obs_dtype``."""
-        t = self.lidar_table
-        scan = self._scan(pose.contiguous(), self._lidar_cells, t.lo, t.cell,
-                          t.shape, self.local_dirs, self.spec.robot_radius,
-                          self.spec.max_range)
+        t, spec = self.lidar_table, self.spec
+        pose = pose.contiguous()
+        scan = self._scan(pose, self._lidar_cells, t.lo, t.cell, t.shape,
+                          self.local_dirs, spec.robot_radius, spec.max_range,
+                          discs=not self.walls_only)
+        if self.walls_only:
+            # The kernel's normalized walls and the normalized silhouettes
+            # combine by their minimum.  The normalize x -> fl(fl(x /
+            # max_range) - 0.5) is monotone and a minimum commutes with a
+            # monotone map, so this is the JAX package's min(d_seg, d_rob,
+            # max_range) / max_range - 0.5 to the last bit.
+            scan = torch.minimum(scan, self.silhouette_obs(pose))
         if self._obs_idx is not None:
             scan = scan[..., self._obs_idx]
         return scan.to(self.obs_dtype)
+
+    def silhouette_obs(self, pose: torch.Tensor) -> torch.Tensor:
+        """(A, N, 3) poses -> (A, N, B) the other robots' silhouettes alone
+        (boxes or culled discs, plain PyTorch), normalized as
+        ``lidar_cuda.lidar_obs_plain`` normalizes ranges."""
+        m = self.spec.max_range
+        dx, dy = rotate_beams(pose[..., 2], self.local_dirs)
+        d_rob = raycast_robots(pose, dx, dy, self.spec.robot_radius,
+                               self.disc_cull_k, self._rect_dims)
+        return d_rob.clamp_max(m) / m - 0.5
 
     def obs(self, state: EnvState) -> Obs:
         return Obs(scans=state.scan_hist, goal=local_goal(state.pose,
@@ -239,12 +291,17 @@ class Env:
 
         cand = physics.integrate(state.pose, v, w, spec.dt, spec.substeps)
         t = self.wall_table
-        cells = lookup_cells(t.lo, t.cell, t.shape, cand[..., :2])
-        wall = physics.wall_collision_packed(cand[..., :2],
-                                             self._wall_cells[cells],
-                                             spec.robot_radius)
-        stalled = wall | physics.robot_collision(cand[..., :2],
-                                                 spec.robot_radius)
+        culled = self._wall_cells[lookup_cells(t.lo, t.cell, t.shape,
+                                               cand[..., :2])]
+        if spec.footprint == "rect":
+            hl, hw = spec.rect_half_len, spec.rect_half_wid
+            stalled = (physics.rect_wall_collision(cand, culled, hl, hw)
+                       | physics.rect_robot_collision(cand, hl, hw))
+        else:
+            stalled = (physics.wall_collision_packed(cand[..., :2], culled,
+                                                     spec.robot_radius)
+                       | physics.robot_collision(cand[..., :2],
+                                                 spec.robot_radius))
         pose = torch.where(stalled[..., None], state.pose, cand)
 
         steps = state.step + live.to(torch.int32)

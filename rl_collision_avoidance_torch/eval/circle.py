@@ -127,15 +127,11 @@ def run_circle_eval(policy, spec=None, max_steps: int = 2000, seed: int = 0,
     """Success rate, collision count, mean (extra) travel time of the port's
     ``policy`` (a ``CNNPolicy``) in ``spec`` (the 50-robot ``circle``), on
     the policy's device.  The pose noise is drawn from a generator seeded
-    with ``seed``, or given as ``noise`` (A, N, 2).  ``env_kwargs`` (the JAX
-    package's culled rect path) is not ported."""
-    if env_kwargs:
-        raise NotImplementedError(
-            f"env_kwargs {sorted(env_kwargs)}: the rect footprint and its "
-            "culled silhouettes are not ported yet")
+    with ``seed``, or given as ``noise`` (A, N, 2).  ``env_kwargs`` forwards
+    to :class:`Env` (``{"disc_cull_k": 12}`` for the culled rect path)."""
     spec = spec or circle_world()
     device = next(policy.parameters()).device
-    env = Env(spec, device=device, seed=seed)
+    env = Env(spec, device=device, seed=seed, **(env_kwargs or {}))
     if noise is None and pose_noise:
         gen = torch.Generator(device=device).manual_seed(seed)
         noise = pose_noise_draw(n_arenas, spec.n_robots, pose_noise, gen)

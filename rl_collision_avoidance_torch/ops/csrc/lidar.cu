@@ -30,6 +30,11 @@
 // kernel's (A, K, N, 4) culled-segment tensor never exists in device
 // memory.
 //
+// Walls-only mode: a far-disc bound far_c2 = 0 keeps no disc (the keep rule
+// is 0 < c2 < far_c2), so the block tests the cell-culled walls alone; the
+// caller adds the other robots' silhouettes (boxes, or the k nearest discs)
+// itself.
+//
 // Numerics: every operation is the IEEE-rounded one the plain version does,
 // in its order (__fmul_rn / __fadd_rn / __fsub_rn forbid FMA contraction,
 // __fdiv_rn and __fsqrt_rn are exact), so kernel and plain version agree to

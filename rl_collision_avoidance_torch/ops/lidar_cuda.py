@@ -6,7 +6,10 @@ hand-written kernel in ``csrc/lidar.cu`` (which replaces
 ``rl_collision_avoidance_tpu/ops/lidar_pallas.py::_kernel``); on CPU tensors
 it runs :func:`lidar_obs_plain`, the unfused chain of cell lookup, gather,
 ``engine/lidar.py::raycast_culled`` and the normalize.  There is no fallback
-between the two: a CUDA tensor that the kernel cannot take raises.
+between the two: a CUDA tensor that the kernel cannot take raises.  With
+``discs=False`` both compute the walls alone (the kernel keeps no disc),
+for the env to combine with silhouettes it computes itself: boxes, or the
+k nearest discs.
 
 The kernel skips candidates that cannot change its result.  Each rule it
 uses is stated once below (:func:`live_slots`, :func:`disc_kept`), for the
@@ -16,6 +19,7 @@ get right.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -24,11 +28,14 @@ import numpy as np
 import torch
 
 from ..engine.celltable import lookup_cells
-from ..engine.lidar import raycast_culled
+from ..engine.lidar import raycast_culled, raycast_walls, rotate_beams
 from . import build
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+#: The same launches by (mode, robots, "float32"): mode "lidar_obs" for the
+#: walls and the discs, "lidar_obs_walls" for the walls alone.
+launches_by_mode: collections.Counter = collections.Counter()
 
 #: The far-disc cut leaves this share of ``max_range`` as a margin over the
 #: float32 rounding of a hit distance (< 4e-4 of it; see :func:`disc_kept`).
@@ -36,12 +43,16 @@ FAR_MARGIN = 1.0 / 64.0
 
 
 def lidar_obs_plain(pose, table, lo, cell: float, grid, dirs, radius: float,
-                    max_range: float) -> torch.Tensor:
+                    max_range: float, discs: bool = True) -> torch.Tensor:
     """Plain version: pose (A, N, 3), cell table (C, K, 4) with origin
     ``lo``, edge ``cell`` and grid (nx, ny), beam table dirs (B, 2) ->
-    (A, N, B) normalized ranges."""
+    (A, N, B) normalized ranges; the walls alone with ``discs=False``."""
     culled = table[lookup_cells(lo, cell, grid, pose[..., :2])]   # (A, N, K, 4)
-    ranges = raycast_culled(pose, dirs, culled, radius, max_range)
+    if discs:
+        ranges = raycast_culled(pose, dirs, culled, radius, max_range)
+    else:
+        dx, dy = rotate_beams(pose[..., 2], dirs)
+        ranges = raycast_walls(pose, dx, dy, culled).clamp_max(max_range)
     return ranges / max_range - 0.5
 
 
@@ -163,11 +174,13 @@ def _require(cond: bool, msg) -> None:
 
 
 def lidar_obs(pose, table, lo, cell: float, grid, dirs, radius: float,
-              max_range: float) -> torch.Tensor:
-    """(A, N, B) normalized lidar frame; see :func:`lidar_obs_plain`."""
+              max_range: float, discs: bool = True) -> torch.Tensor:
+    """(A, N, B) normalized lidar frame; see :func:`lidar_obs_plain`.  With
+    ``discs=False`` the kernel gets a far-disc bound of 0, so its keep rule
+    (0 < c2 < far) keeps no disc and it computes the walls alone."""
     if pose.device.type == "cpu":
         return lidar_obs_plain(pose, table, lo, cell, grid, dirs, radius,
-                               max_range)
+                               max_range, discs)
     _require(pose.is_cuda, lambda: f"unsupported device {pose.device}")
     for name, t, ndim, last, align in (("pose", pose, 3, 3, 4),
                                        ("table", table, 3, 4, 16),
@@ -194,8 +207,11 @@ def lidar_obs(pose, table, lo, cell: float, grid, dirs, radius: float,
         pose.data_ptr(), table.data_ptr(), dirs.data_ptr(), out.data_ptr(),
         a, n, beams, k, nx, ny, float(lo[0]), float(lo[1]), float(cell),
         float(radius * radius), float(max_range),
-        far_disc_c2(radius, max_range), pose.device.index or 0, stream)
+        far_disc_c2(radius, max_range) if discs else 0.0,
+        pose.device.index or 0, stream)
     build.check(status, "lidar_obs")
     global launches
     launches += 1
+    launches_by_mode["lidar_obs" if discs else "lidar_obs_walls", a * n,
+                     "float32"] += 1
     return out

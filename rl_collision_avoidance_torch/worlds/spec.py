@@ -1,8 +1,9 @@
 """World specifications for the port: geometry, sensor and reward constants.
 
-Counterpart of ``rl_collision_avoidance_tpu/worlds/spec.py`` for the disc
-footprint: the curriculum's worlds ``stage1``, ``stage2``, ``circle`` and
-``circle_train``, and the small ``mini`` test room.  The wall geometry
+Counterpart of ``rl_collision_avoidance_tpu/worlds/spec.py``: the
+curriculum's worlds ``stage1``, ``stage2``, ``circle`` and
+``circle_train``, ``stage1_rect`` (stage 1 with Stage's exact box
+footprint), and the small ``mini`` test room.  The wall geometry
 comes from the committed literal tables in :mod:`.stage1_geometry`,
 :mod:`.stage2_geometry` and :mod:`.circle_geometry`, so no world is compiled
 from an image at run time.  Array members are numpy;
@@ -45,8 +46,13 @@ class WorldSpec:
     seg_valid: np.ndarray  # (S,) bool padding mask
 
     # robot / sensor constants (worlds/stage1.world:8-15,83)
-    robot_radius: float = 0.22
+    robot_radius: float = 0.22  # disc approximation of the 0.44 x 0.38 box
+    # Collision footprint: "disc" (robot_radius, the fast default) or "rect",
+    # Stage's exact 0.44 x 0.38 m oriented box (stage1.world:83), for wall
+    # and robot-robot collision and, by default, the lidar silhouettes.
     footprint: str = "disc"
+    rect_half_len: float = 0.22  # half of `size [0.44 0.38 0.22]` x
+    rect_half_wid: float = 0.19  # half of its y
     n_beams: int = 512
     fov: float = np.pi
     max_range: float = 6.0
@@ -238,6 +244,14 @@ def mini(n_robots: int = 4, n_beams: int = 64) -> WorldSpec:
                      seg_p=seg_p, seg_e=seg_e, seg_valid=valid)
 
 
+def stage1_rect() -> WorldSpec:
+    """Stage 1 under Stage's exact footprint, the 0.44 x 0.38 m oriented box
+    (worlds/stage1.world:83), for collision and lidar silhouettes; the
+    geometry, scenario and reward of :func:`stage1`."""
+    return dataclasses.replace(stage1(), name="stage1_rect", footprint="rect")
+
+
 def get_world(name: str) -> WorldSpec:
     return {"stage1": stage1, "stage2": stage2, "circle": circle,
-            "circle_train": circle_train, "mini": mini}[name]()
+            "circle_train": circle_train, "mini": mini,
+            "stage1_rect": stage1_rect}[name]()

@@ -301,15 +301,22 @@ def test_circle_eval_noise_draw():
     assert abs(float(noise.mean())) < 0.02
 
 
-def test_circle_eval_refuses_what_is_not_ported():
+def test_circle_eval_runs_the_rect_and_culled_paths():
+    """The box footprint and env_kwargs (disc_cull_k, forwarded to Env) run
+    through run_circle_eval; an Env keyword that the JAX Env lacks too
+    raises TypeError."""
+    torch.manual_seed(2)
     policy = CNNPolicy()
-    with pytest.raises(NotImplementedError, match="rect"):
+    rect = dataclasses.replace(circle(), footprint="rect")
+    for spec, kw in ((None, {"disc_cull_k": 12}), (rect, None),
+                     (rect, {"disc_cull_k": 12})):
+        out = circle_eval.run_circle_eval(policy, spec=spec, max_steps=2,
+                                          env_kwargs=kw)
+        assert out["n_robots"] == 50 and out["max_steps"] == 2
+        assert out["unfinished"] + out["collisions"] == 50
+    with pytest.raises(TypeError, match="no_such_option"):
         circle_eval.run_circle_eval(policy, max_steps=1,
-                                    env_kwargs={"disc_cull_k": 12})
-    with pytest.raises(NotImplementedError, match="rect"):
-        circle_eval.run_circle_eval(
-            policy, spec=dataclasses.replace(circle(), footprint="rect"),
-            max_steps=1)
+                                    env_kwargs={"no_such_option": 1})
 
 
 def test_cli_circle_test(tmp_path, capsys):

@@ -5,6 +5,8 @@ imports no JAX, so it also runs on a machine that has none:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -14,7 +16,7 @@ from rl_collision_avoidance_torch.models import CNNPolicy
 from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
 from rl_collision_avoidance_torch.worlds import (circle, circle_train, mini,
-                                                 stage1, stage2)
+                                                 stage1, stage1_rect, stage2)
 
 pytestmark = pytest.mark.gpu
 
@@ -72,6 +74,85 @@ def test_lidar_kernel_on_adversarial_arena(cuda, make_spec, n):
     assert torch.equal(got, again)
     assert (want < 0.5 / s.max_range - 0.5).any()   # a disc inside 0.5 m
     torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
+
+
+def _rect_circle():
+    return dataclasses.replace(circle(), footprint="rect")
+
+
+@pytest.mark.parametrize("make_spec,arenas", [(stage1_rect, 32),
+                                              (_rect_circle, 1),
+                                              (_rect_circle, 16)])
+def test_lidar_walls_only_kernel_matches_plain(cuda, make_spec, arenas):
+    """The walls-only mode (discs=False) against lidar_obs_plain(discs=
+    False) on seeded poses with an adversarial_poses arena last: within
+    LIDAR_ATOL, bit-equal over two launches, counted as walls-only."""
+    env = Env(make_spec(), device=cuda, seed=5)
+    s = env.spec
+    pose, _ = env.sample_pose_goal(arenas)
+    pose[-1] = torch.from_numpy(lidar_cuda.adversarial_poses(
+        s, s.n_robots, seed=arenas))[0].to(cuda)
+    pose = pose.contiguous()
+    key = ("lidar_obs_walls", arenas * s.n_robots, "float32")
+    before = lidar_cuda.launches_by_mode[key]
+    got = lidar_cuda.lidar_obs(pose, *_lidar_args(env), discs=False)
+    again = lidar_cuda.lidar_obs(pose, *_lidar_args(env), discs=False)
+    want = lidar_cuda.lidar_obs_plain(pose, *_lidar_args(env), discs=False)
+    full = lidar_cuda.lidar_obs(pose, *_lidar_args(env))
+    torch.cuda.synchronize()
+    assert lidar_cuda.launches_by_mode[key] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
+    assert (got >= full).all() and (got > full).any()   # no disc
+
+
+@pytest.mark.parametrize("make_spec,kw", [(stage1_rect, {}),
+                                          (_rect_circle, {}),
+                                          (_rect_circle, {"disc_cull_k": 12})])
+def test_rect_env_kernel_path_matches_plain_path(cuda, make_spec, kw):
+    """Five steps of the box footprint through the walls-only kernel and
+    the plain path on the card, from the same state, actions and reset
+    draws: poses, rewards and flags equal, scans within LIDAR_ATOL."""
+    env = Env(make_spec(), device=cuda, seed=0, **kw)
+    plain = Env(make_spec(), device=cuda, use_kernels=False, **kw)
+    assert env.walls_only
+    n = env.n_robots
+    pose, goal = env.sample_pose_goal(4)
+    state, obs = env.reset(4, pose, goal)
+    pstate, pobs = plain.reset(4, pose, goal)
+    torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL, rtol=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    counts = lidar_cuda.launches_by_mode.copy()
+    for _ in range(5):
+        act = torch.rand((4, n, 2), generator=g, device=cuda) * 2 - 0.5
+        rp, rg = env.sample_pose_goal(4, state.pose)
+        state, obs, r, d, _ = env.step(state, act, rp, rg)
+        pstate, pobs, pr, pd, _ = plain.step(pstate, act, rp, rg)
+        assert torch.equal(r, pr) and torch.equal(d, pd)
+        assert torch.equal(state.pose, pstate.pose)
+        torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL,
+                                   rtol=0)
+    new = lidar_cuda.launches_by_mode - counts
+    assert dict(new) == {("lidar_obs_walls", 4 * n, "float32"): 5}
+
+
+def test_disc_cull_kernel_walls_match_exact_kernel(cuda):
+    """disc_cull_k on a disc world: the walls-only kernel with the top-k
+    discs; at k = N - 1 within LIDAR_ATOL of the exact kernel (walls and
+    discs in one launch), and on robots spread beyond max_range at k = 4
+    too."""
+    spec = stage1()
+    n = spec.n_robots
+    exact = Env(spec, device=cuda)
+    cluster = torch.rand((8, n, 3), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda) * 8 - 4
+    ang = torch.linspace(0, 2 * torch.pi, n + 1, device=cuda)[:n]
+    ring = torch.stack([9 * ang.cos(), 9 * ang.sin(), ang], -1)[None]
+    for k, pose in ((n - 1, cluster), (4, ring.contiguous())):
+        culled = Env(spec, device=cuda, disc_cull_k=k)
+        assert culled.walls_only
+        torch.testing.assert_close(culled.scan_obs(pose), exact.scan_obs(pose),
+                                   atol=LIDAR_ATOL, rtol=0)
 
 
 def test_lidar_kernel_rejects_bad_input(cuda):
