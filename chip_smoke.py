@@ -30,7 +30,21 @@ path ran through the kernels, at those batch sizes, and stayed right:
   path), and the rect circle eval with the fine-tuned weights: the ring
   (success 1.0, no collision), the ring culled to the 12 nearest robots
   (success 1.0) and 16 arenas at 0.3 m of pose noise (success >= 0.70);
-  the device ms of the plain box silhouettes on each of these paths.
+  the device ms of the plain box silhouettes on each of these paths;
+- multi-process training (``parallel/dist.py``, ``ppo_update`` over a
+  process group):
+  the stage-1 training slice again as one NCCL rank in-process, bit-equal
+  to the one-process slice in its params and every metric; two gloo ranks
+  sharing the card (NCCL refuses two ranks on one device), each a process
+  of its own training 16 of the 32 arenas for 1 + 2 updates in float32 and
+  in bf16 (params bit-equal across the ranks, goal share >= 0.5), with the
+  lidar at 384 robots and the trunk kernels at 384 and 16,384 held to
+  their plain versions; one ``ppo_update`` of a synthetic 32,768-sample
+  minibatch split over the ranks against one process's update of the whole
+  (the gradient Adam stepped on, the params after, the losses); and the
+  time of one all-reduce of the flattened gradient on each backend.  The
+  two-rank runs check correctness: two ranks on one card are no scaling
+  figure.
 
 Right after the build it reads the library's SASS (``cuobjdump -sass``):
 every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
@@ -45,8 +59,10 @@ a temporary directory).
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit (nvcc).  Exits non-zero, with no
-result line, when there is no card or when the port is not beside it.  Its
+(``chip_smoke.py mp-rank RANK URL OUT DEVICE`` is one of the two gloo ranks;
+the script starts them itself.)  Needs one CUDA card and the CUDA toolkit
+(nvcc).  Exits non-zero, with no result line, when there is no card or
+when the port is not beside it.  Its
 last three lines are the JSON record of each kernel on each path, world,
 batch size and precision (launches counted on that path, times measured at
 that batch),
@@ -174,6 +190,15 @@ MAX_FLIP_SHARE = 5e-3
 # piece (MAX_FLIP_SHARE).
 BF16_ULP = 2.0 ** -7
 BF16_FLIP_SHARE = 1e-2
+# Multi-process training on the one card: two gloo ranks (NCCL refuses two
+# ranks on one device) with TRAIN_ARENAS / MP_RANKS arenas and half of each
+# global minibatch each, as a two-card run cuts the stage-1 preset.  Each
+# rank is a process of its own (this script with the arguments ``mp-rank
+# RANK URL OUT DEVICE``) and must finish within MP_TIMEOUT seconds.
+MP_RANKS = 2
+MP_TIMEOUT = 420
+MP_MIN_GOAL = 0.5     # the stage-1 gate of the one-process training slice
+MB_SEED = SEED + 5    # the synthetic minibatch of the split-gradient check
 # Published H100 SXM peaks (NVIDIA data sheet): HBM, non-tensor float32 and
 # dense bf16 tensor-core products.
 HBM_BYTES_PER_S = 3.35e12
@@ -1049,7 +1074,7 @@ def run_training(device, card: str, cfg, params, updates: int,
     (unless ``min_goal`` is None) and the minibatch gradients against the
     plain path (``f64``: see compare_minibatch_grads), in the precision of
     ``cfg.policy_dtype``.  Returns (launches by (name, batch, precision),
-    trainer, state)."""
+    trainer, state, the metrics of each update)."""
     import torch
 
     from rl_collision_avoidance_torch.models.policy import PRECISION
@@ -1069,9 +1094,8 @@ def run_training(device, card: str, cfg, params, updates: int,
         (state, m), ms = timed(lambda: tr.train_step(state), device)
         metrics.append(m)
         update_ms.append(ms)
-    robots, mb = cfg.n_arenas * tr.spec.n_robots, cfg.ppo.batch_size
+    mb = cfg.ppo.batch_size
     launches = read_counts()
-    lidar = "lidar_obs_walls" if tr.env.walls_only else "lidar_obs"
 
     steps = metrics[0]["env_steps"]
     keys = ("policy_loss", "value_loss", "entropy", "episodes", "reached",
@@ -1109,14 +1133,8 @@ def run_training(device, card: str, cfg, params, updates: int,
                 zip(state.policy.parameters(), start_params))
     if not moved > 0:
         raise AssertionError("training left the parameters where they were")
-    # the rollout's horizon acting steps and its bootstrap at one arena
-    # batch each, one forward and one backward for each PPO minibatch
-    if device.type == "cuda" and launches != {
-            (lidar, robots, "float32"): updates * cfg.horizon,
-            ("twin_trunks", robots, precision): updates * (cfg.horizon + 1),
-            ("twin_trunks", mb, precision): updates * steps_per_update,
-            ("twin_trunks_grads", mb, precision):
-                updates * steps_per_update}:
+    if device.type == "cuda" and launches != training_launches(
+            tr, updates, steps_per_update):
         raise AssertionError(f"a kernel of the training path did not run as "
                              f"often as it should: {launches}")
     goal = sum(m["reached"] for m in metrics)
@@ -1129,7 +1147,390 @@ def run_training(device, card: str, cfg, params, updates: int,
         raise AssertionError(f"the warm-started policy reached the goal in "
                              f"{goal} of {ended} episodes (< {min_goal})")
     compare_minibatch_grads(tr, state, traj, last_value, f64)
-    return launches, tr, state
+    return launches, tr, state, metrics
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def flat_grad_numel() -> int:
+    """Floats in the policy's flattened gradient, the buffer that
+    ``ppo_update`` all-reduces once a minibatch."""
+    from rl_collision_avoidance_torch.models import CNNPolicy
+
+    return sum(p.numel() for p in CNNPolicy().parameters())
+
+
+def time_all_reduce(device, iters: int = 20) -> float:
+    """ms of one all-reduce of the flattened gradient in the current
+    process group (host clock around synchronized calls, so the same
+    measure for NCCL and for gloo, whose CUDA path stages through the
+    host)."""
+    import torch
+
+    from rl_collision_avoidance_torch.parallel import all_reduce_sum
+
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
+        else (lambda: None)
+    flat = torch.ones(flat_grad_numel(), device=device)
+    for _ in range(3):
+        all_reduce_sum(flat)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        all_reduce_sum(flat)
+    sync()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def train_updates(tr, updates: int):
+    """``updates`` updates of a trainer warm-started from PARAMS, counted
+    from 0 launches; returns (state, the metrics of each update, the
+    launches, the ms of each update from CUDA events)."""
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+
+    state = tr.init_state()
+    state.policy.load_state_dict(jax_params_to_torch(load_jax_npz(PARAMS)))
+    reset_counts()
+    metrics, update_ms = [], []
+    for _ in range(updates):
+        (state, m), ms = timed(lambda: tr.train_step(state), tr.device)
+        metrics.append(m)
+        update_ms.append(ms)
+    return state, metrics, read_counts(), update_ms
+
+
+@phase("multi-process, 1 rank (NCCL)")
+def run_one_rank_nccl(device, card: str, cfg, updates: int, want_params,
+                      want_metrics):
+    """Stage-1 training of ``cfg`` from PARAMS in a one-rank NCCL group on
+    a free port: ``updates`` updates with the collectives running, which
+    must end bit-equal to the one-process slice (``want_params``,
+    ``want_metrics``).  Returns (the launches, the ms of one NCCL
+    all-reduce of the flattened gradient)."""
+    import torch
+
+    from rl_collision_avoidance_torch import parallel
+    from rl_collision_avoidance_torch.train import Trainer
+
+    parallel.setup_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                               device=device)
+    try:
+        if device.type == "cuda" and torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the one-rank group on the card is not NCCL")
+        tr = Trainer(cfg, device=device)
+        state, metrics, launches, update_ms = train_updates(tr, updates)
+        steps = metrics[0]["env_steps"] // cfg.ppo.batch_size * cfg.ppo.epochs
+        want = training_launches(tr, updates, steps)
+        ms = time_all_reduce(device)
+    finally:
+        parallel.teardown()
+    same = (metrics == want_metrics and all(
+        torch.equal(v, want_params[k])
+        for k, v in state.policy.state_dict().items()))
+    print(f"multi-process: 1 NCCL rank, {cfg.n_arenas} arenas, {updates} "
+          f"updates: params and metrics bit-equal to the one-process slice: "
+          f"{same}; kernel launches (name, batch, precision): {launches}; "
+          f"update ms (CUDA events; the first a warm-up) {update_ms}; an "
+          f"all-reduce of the {flat_grad_numel()}-float gradient {ms:.4g} "
+          f"ms [{card}]", flush=True)
+    if not same:
+        raise AssertionError("one-rank NCCL training left the one-process "
+                             "path's bits")
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"a kernel of the one-rank path did not run as "
+                             f"often as it should: {launches}")
+    return launches, ms
+
+
+def synthetic_minibatch(device):
+    """One stage-1 minibatch of BWD_BATCH samples from MB_SEED, built with
+    numpy so that every process builds the same bits: scans uniform over
+    the normalized range, actions drawn around random means with the
+    PARAMS policy's std and their log-probabilities under those means,
+    advantages and targets standard normal, 10% of the weights 0."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rl_collision_avoidance_torch.algo.ppo import Batch
+    from rl_collision_avoidance_torch.utils.params import load_jax_npz
+
+    logstd = np.asarray(load_jax_npz(PARAMS)["params"]["logstd"],
+                        np.float64).reshape(2)
+    rng = np.random.default_rng(MB_SEED)
+    m = BWD_BATCH
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a, dtype=np.float32)).to(device)
+    unit = lambda: np.stack([rng.uniform(0, 1, m), rng.uniform(-1, 1, m)], -1)
+    mu, eps = unit(), rng.standard_normal((m, 2))
+    logprob = (-0.5 * eps ** 2 - 0.5 * math.log(2 * math.pi)
+               - logstd).sum(-1, keepdims=True)
+    return Batch(scans=put(rng.uniform(-0.5, 0.5, (m, 3, 512))),
+                 goal=put(rng.normal(0.0, 2.0, (m, 2))), speed=put(unit()),
+                 action=put(mu + np.exp(logstd) * eps), logprob=put(logprob),
+                 target=put(rng.standard_normal((m, 1))),
+                 adv=put(rng.standard_normal((m, 1))),
+                 weight=put(rng.uniform(size=m) > 0.1))
+
+
+def split_update(device):
+    """One ``ppo_update`` (one epoch, one minibatch of BWD_BATCH, in order)
+    of the synthetic minibatch from PARAMS, as the trainer runs it: this
+    process's share of the minibatch (its rank's 1 / W, the whole of it
+    without a group), the advantages normalized over every rank's by
+    ``normalize_shard_advantages``.  Returns (the gradients the update
+    left, which Adam stepped on: summed over the ranks; the params after;
+    the minibatch's policy, value and entropy losses, global)."""
+    import torch
+
+    from rl_collision_avoidance_torch import parallel
+    from rl_collision_avoidance_torch.algo.ppo import (
+        Batch, normalize_shard_advantages, ppo_update)
+    from rl_collision_avoidance_torch.models import load_policy
+    from rl_collision_avoidance_torch.train import TrainConfig
+
+    cfg = TrainConfig.stage1(n_arenas=TRAIN_ARENAS).ppo._replace(
+        batch_size=BWD_BATCH, epochs=1)
+    policy = load_policy(PARAMS, device=device)
+    optimizer = torch.optim.Adam(policy.parameters(), lr=cfg.learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    m = BWD_BATCH // parallel.world_size()
+    r = parallel.rank()
+    mb = Batch(*(x[r * m:(r + 1) * m] for x in synthetic_minibatch(device)))
+    mb = mb._replace(adv=normalize_shard_advantages(mb.adv))
+    out = ppo_update(policy, optimizer, mb, cfg,
+                     torch.arange(m, device=device)[None])
+    params = list(policy.parameters())
+    return ([p.grad for p in params], [p.detach() for p in params],
+            out["minibatches"][0].tolist())
+
+
+def params_sha256(params) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for v in params:
+        digest.update(v.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def mp_rank(rank: int, url: str, out: str, device: str) -> int:
+    """One of the MP_RANKS gloo ranks on ``device``, ``cuda:0`` on the card
+    (the ``mp-rank`` arguments): stage-1 training of its TRAIN_ARENAS /
+    MP_RANKS arenas for 1 + TRAIN_UPDATES updates from PARAMS in float32
+    and then in bf16, its half of the synthetic minibatch's update
+    (split_update), and the time of a gloo all-reduce of the flattened
+    gradient on CUDA tensors.  Writes ``out`` as JSON: per mode and for
+    the split update the sha256 of the params' bytes, the global metrics
+    or losses, and the training launches; rank 0 also saves the split
+    update's gradients and params beside it."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from rl_collision_avoidance_torch import parallel
+    from rl_collision_avoidance_torch.train import TrainConfig, Trainer
+
+    device = torch.device(device)
+    parallel.setup_distributed(url, MP_RANKS, rank, backend="gloo",
+                               device=device)
+    result = {"rank": rank}
+    try:
+        for precision in ("float32", "bf16"):
+            dtype = torch.bfloat16 if precision == "bf16" else None
+            cfg = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED,
+                                     policy_dtype=dtype or torch.float32,
+                                     obs_store_dtype=dtype)
+            tr = Trainer(cfg, device=device)
+            state, metrics, launches, _ = train_updates(tr, 1 + TRAIN_UPDATES)
+            steps = (metrics[0]["env_steps"] // cfg.ppo.batch_size
+                     * cfg.ppo.epochs)
+            if device.type == "cuda" and launches != training_launches(
+                    tr, len(metrics), steps):
+                raise AssertionError(f"rank {rank} ({precision}): a kernel "
+                                     f"did not run as often as it should: "
+                                     f"{launches}")
+            result[precision] = {
+                "sha256": params_sha256(state.policy.state_dict().values()),
+                "metrics": metrics,
+                "launches": [[*k, v] for k, v in launches.items()]}
+            del tr, state
+        grads, params, losses = split_update(device)
+        result["split"] = {"sha256": params_sha256(params), "losses": losses}
+        if rank == 0:
+            result["split_file"] = f"{out}.split.pt"
+            torch.save([[t.cpu() for t in grads], [t.cpu() for t in params]],
+                       result["split_file"])
+        result["allreduce_ms"] = time_all_reduce(device)
+    finally:
+        parallel.teardown()
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+@phase("multi-process, 2 ranks on one card (gloo)")
+def run_two_ranks(device, card: str) -> dict:
+    """MP_RANKS worker processes of the port on ``device`` (mp_rank),
+    joined by gloo through a file store, each within MP_TIMEOUT seconds.
+    Gates: every rank exits 0 and writes its result; in each mode the
+    ranks' params hash alike, their global metrics are equal and the goal
+    share of ended episodes is at least MP_MIN_GOAL; and the split
+    update of the synthetic minibatch (split_update) against one process's
+    update of the whole: the ranks' params bit-equal, the gradient Adam
+    stepped on within GRAD_ATOL and GRAD_NORM, every parameter moved
+    alike (see check_split_update), and the value and entropy losses within
+    GRAD_NORM relative.  Returns the launches merged over the ranks by mode,
+    and the ms of one gloo all-reduce."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.json" for r in range(MP_RANKS)]
+        logs = [open(Path(tmp) / f"rank{r}.log", "w+")
+                for r in range(MP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "mp-rank", str(r),
+             f"file://{tmp}/store", str(outs[r]), str(device)], cwd=ROOT,
+            stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(MP_RANKS)]
+        deadline = time.perf_counter() + MP_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if p.returncode != 0 or not outs[r].is_file():
+                raise AssertionError(f"rank {r} exited {p.returncode} "
+                                     f"without a result:\n{text[-4000:]}")
+        results = [json.loads(o.read_text()) for o in outs]
+        got = torch.load(results[0]["split_file"])
+    merged = {}
+    for precision, path in (("float32", "training, 2 ranks"),
+                            ("bf16", "training, 2 ranks, bf16")):
+        runs = [res[precision] for res in results]
+        if len({run["sha256"] for run in runs}) != 1:
+            raise AssertionError(f"{path}: the ranks' params differ: "
+                                 f"{[run['sha256'] for run in runs]}")
+        if any(run["metrics"] != runs[0]["metrics"] for run in runs):
+            raise AssertionError(f"{path}: the ranks' global metrics differ")
+        counts = {}
+        for run in runs:
+            for *key, k in run["launches"]:
+                counts[tuple(key)] = counts.get(tuple(key), 0) + k
+        merged[precision] = counts
+        metrics = runs[0]["metrics"]
+        goal = sum(m["reached"] for m in metrics)
+        ended = sum(m["episodes"] for m in metrics)
+        for i, m in enumerate(metrics):
+            print(f"{path}: update {i + 1}: " + ", ".join(
+                f"{k} {m[k]:.6g}" for k in ("policy_loss", "value_loss",
+                                            "entropy", "episodes", "reached",
+                                            "crashed", "reward_mean")),
+                  flush=True)
+        print(f"{path}: {MP_RANKS} gloo ranks on {card}, {TRAIN_ARENAS} "
+              f"arenas: params sha256 {runs[0]['sha256'][:16]} on every "
+              f"rank; goal share {goal / max(ended, 1):.3f} of {ended:.0f} "
+              f"ended episodes; kernel launches over the ranks (name, batch, "
+              f"precision): {counts}", flush=True)
+        if ended == 0 or goal / ended < MP_MIN_GOAL:
+            raise AssertionError(f"{path}: goal share {goal} of {ended} "
+                                 f"ended episodes (< {MP_MIN_GOAL})")
+    check_split_update(device, results, got)
+    return {**merged, "allreduce_ms": results[0]["allreduce_ms"]}
+
+
+def check_split_update(device, results, got) -> None:
+    """The MP_RANKS ranks' split update (their ``results``, rank 0's
+    gradients and params ``got``) against split_update of the whole
+    synthetic minibatch in this process.  Each gradient leaf must lie
+    within GRAD_ATOL of its largest value and GRAD_NORM in relative 2-norm.
+    Adam's first step moves a parameter by lr g / (|g| + eps), at most lr,
+    so where the two gradients agree in sign away from zero the two params
+    agree to rounding: a parameter whose steps differ by more than lr / 2
+    must have a gradient within GRAD_ATOL of zero.  The global value and
+    entropy losses must agree within GRAD_NORM relative."""
+    import torch
+
+    from rl_collision_avoidance_torch.models import CNNPolicy
+    from rl_collision_avoidance_torch.train import TrainConfig
+
+    runs = [res["split"] for res in results]
+    if len({run["sha256"] for run in runs}) != 1:
+        raise AssertionError(f"split update: the ranks' params differ: "
+                             f"{[run['sha256'] for run in runs]}")
+    lr = TrainConfig.stage1(n_arenas=TRAIN_ARENAS).ppo.learning_rate
+    names = [n for n, _ in CNNPolicy().named_parameters()]
+    want_grads, want_params, want_losses = split_update(device)
+    worst = {"el": 0.0, "norm": 0.0, "moved": 0}
+    got_grads, got_params = got
+    for name, ga, gb, pa, pb in zip(names, got_grads, want_grads, got_params,
+                                    want_params):
+        ga, gb = ga.to(device).double(), gb.double()
+        scale = float(gb.abs().max())
+        el = float((ga - gb).abs().max()) / max(scale, 1e-30)
+        nrm = float((ga - gb).norm() / gb.norm().clamp(min=1e-30))
+        moved = (pa.to(device) - pb).abs() > lr / 2
+        worst = {"el": max(worst["el"], el), "norm": max(worst["norm"], nrm),
+                 "moved": worst["moved"] + int(moved.sum())}
+        if not (el <= GRAD_ATOL and nrm <= GRAD_NORM):
+            raise AssertionError(f"the {MP_RANKS}-rank gradient of {name} "
+                                 f"differs from the one-process one by "
+                                 f"{el:.3g} of its largest value, {nrm:.3g} "
+                                 f"in relative 2-norm")
+        if bool((gb[moved].abs() > GRAD_ATOL * scale).any()):
+            raise AssertionError(f"{name}: a parameter with a gradient beyond "
+                                 f"GRAD_ATOL of zero stepped differently on "
+                                 f"{MP_RANKS} ranks and in one process")
+    have_losses = runs[0]["losses"]
+    for i, what in ((1, "value"), (2, "entropy")):
+        rel = abs(have_losses[i] - want_losses[i]) / abs(want_losses[i])
+        if not rel <= GRAD_NORM:
+            raise AssertionError(f"split update: the {what} loss is "
+                                 f"{have_losses[i]} on {MP_RANKS} ranks, "
+                                 f"{want_losses[i]} in one process")
+    print(f"multi-process: one ppo_update of a {BWD_BATCH}-sample minibatch "
+          f"split over {MP_RANKS} ranks against one process's: gradient "
+          f"worst leaf {worst['el']:.3g} of its largest value (limit "
+          f"{GRAD_ATOL}), {worst['norm']:.3g} in relative 2-norm (limit "
+          f"{GRAD_NORM}); {worst['moved']} parameters stepped differently, "
+          f"all with a gradient within GRAD_ATOL of zero; losses (policy, "
+          f"value, entropy) {have_losses} against {want_losses}", flush=True)
+
+
+def training_launches(tr, updates: int, steps_per_update: int) -> dict:
+    """The launches ``updates`` updates of the trainer ``tr`` make (on its
+    rank, in a process group): the rollout's horizon acting steps and its
+    bootstrap at the rank's arena batch each, one forward and one backward
+    for each of the rank's PPO minibatches."""
+    from rl_collision_avoidance_torch.models.policy import PRECISION
+
+    cfg, precision = tr.cfg, PRECISION[tr.cfg.policy_dtype]
+    robots = tr.n_local * tr.spec.n_robots
+    mb = cfg.ppo.batch_size // tr.world
+    lidar = "lidar_obs_walls" if tr.env.walls_only else "lidar_obs"
+    n = updates
+    return {(lidar, robots, "float32"): n * cfg.horizon,
+            ("twin_trunks", robots, precision): n * (cfg.horizon + 1),
+            ("twin_trunks", mb, precision): n * steps_per_update,
+            ("twin_trunks_grads", mb, precision): n * steps_per_update}
 
 
 def conv_pieces(scans, act, crt, kernel: bool, precision: str = "float32"):
@@ -1530,6 +1931,7 @@ def main() -> int:
     n = {w: get_world(w).n_robots for w in WORLD_PARAMS}
     s2 = TrainConfig.stage2(n_arenas=S2_ARENAS, seed=SEED)
     ft = TrainConfig.circle_ft(n_arenas=FT_ARENAS, seed=SEED)
+    mp_arenas, mp_batch = TRAIN_ARENAS // MP_RANKS, BWD_BATCH // MP_RANKS
     checks = [check_lidar(device, "stage1", ARENAS),
               check_lidar(device, "stage1", TRAIN_ARENAS),
               check_trunk(device, "stage1", ARENAS * n["stage1"]),
@@ -1560,7 +1962,14 @@ def main() -> int:
               check_trunk_bwd(device, "stage1_rect", BWD_BATCH),
               check_lidar(device, "circle", 1, discs=False),
               check_lidar(device, "circle", RECT_ARENAS, discs=False),
-              check_trunk(device, "circle", RECT_ARENAS * n["circle"])]
+              check_trunk(device, "circle", RECT_ARENAS * n["circle"]),
+              # a rank's shapes in the two-rank stage-1 training
+              check_lidar(device, "stage1", mp_arenas),
+              *(f(device, "stage1", b, precision)
+                for precision in ("float32", "bf16")
+                for f, b in ((check_trunk, mp_arenas * n["stage1"]),
+                             (check_trunk, mp_batch),
+                             (check_trunk_bwd, mp_batch)))]
     pass_times(device)
     records = {(r["name"], r["world"], r["batch"], r["precision"]): r
                for r in checks}
@@ -1568,19 +1977,36 @@ def main() -> int:
     s1_bf16 = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED,
                                  policy_dtype=torch.bfloat16,
                                  obs_store_dtype=torch.bfloat16)
-    paths = [("acting", "stage1", run_slice(device, label)),
-             ("training", "stage1", phase("stage-1 training slice")(
-                 run_training)(device, label, s1, PARAMS,
-                               1 + TRAIN_UPDATES, 0.5)[0]),
-             ("acting, bf16", "stage1", run_slice(device, label, bf16=True)),
-             ("training, bf16", "stage1", phase("stage-1 bf16 training")(
-                 run_training)(device, label, s1_bf16, PARAMS,
-                               1 + TRAIN_UPDATES, 0.5)[0]),
-             ("circle eval, 1 arena", "circle",
+    paths = [("acting", "stage1", run_slice(device, label))]
+    launches, _, state, s1_metrics = phase("stage-1 training slice")(
+        run_training)(device, label, s1, PARAMS, 1 + TRAIN_UPDATES, 0.5)
+    s1_params = {k: v.clone() for k, v in state.policy.state_dict().items()}
+    del state
+    paths += [("training", "stage1", launches),
+              ("acting, bf16", "stage1", run_slice(device, label, bf16=True)),
+              ("training, bf16", "stage1", phase("stage-1 bf16 training")(
+                  run_training)(device, label, s1_bf16, PARAMS,
+                                1 + TRAIN_UPDATES, 0.5)[0])]
+    # multi-process training: the slice again as one NCCL rank, then two
+    # gloo ranks sharing the card
+    launches, nccl_ms = run_one_rank_nccl(device, label, s1,
+                                          1 + TRAIN_UPDATES, s1_params,
+                                          s1_metrics)
+    del s1_params
+    paths.append(("training, 1 rank (NCCL)", "stage1", launches))
+    two = run_two_ranks(device, label)
+    paths += [("training, 2 ranks", "stage1", two["float32"]),
+              ("training, 2 ranks, bf16", "stage1", two["bf16"])]
+    print(f"collectives: one all-reduce of the {flat_grad_numel()}-float "
+          f"gradient ({4 * flat_grad_numel()} bytes) a minibatch: NCCL, 1 "
+          f"rank, {nccl_ms:.4g} ms; gloo, {MP_RANKS} ranks on CUDA tensors "
+          f"of one card, {two['allreduce_ms']:.4g} ms (host clock, "
+          f"synchronized) [{label}]", flush=True)
+    paths += [("circle eval, 1 arena", "circle",
               run_circle(device, label, 1, 0.0)),
              (f"circle eval, {EVAL_ARENAS} arenas", "circle",
               run_circle(device, label, EVAL_ARENAS, EVAL_NOISE))]
-    launches, tr, state = phase("stage-2 training")(run_training)(
+    launches, tr, state, _ = phase("stage-2 training")(run_training)(
         device, label, s2, PARAMS, 1 + TRAIN_UPDATES, S2_MIN_GOAL)
     paths.append(("stage-2 training", "stage2", launches))
     checkpoint_round_trip(tr, state)
@@ -1592,7 +2018,7 @@ def main() -> int:
     # state against the plain path, and the rect circle eval
     s1_rect = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED,
                                  world="stage1_rect")
-    launches, tr, state = phase("stage1_rect training")(run_training)(
+    launches, tr, state, _ = phase("stage1_rect training")(run_training)(
         device, label, s1_rect, PARAMS, 1 + TRAIN_UPDATES, 0.5)
     paths.append(("training, rect", "stage1_rect", launches))
     compare_plain_step(tr.env, state.policy, state.env_state,
@@ -1635,4 +2061,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mp-rank"]:
+        sys.exit(mp_rank(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

@@ -17,7 +17,9 @@ default is bf16, both modes here default to float32.  ``--footprint rect``
 runs the acting bench with Stage's exact box footprint (collision and lidar
 silhouettes) and ``--disc-cull K`` culls the silhouettes to each robot's K
 nearest, as the JAX bench's flags do; ``--train --world stage1_rect``
-trains on the box footprint.  Usage::
+trains on the box footprint.  ``--scaling N`` is the counterpart of the
+JAX bench's CPU scaling proof (``measure_scaling``): the acting rate of 1
+and of N gloo processes on the CPU, on mini, one thread each.  Usage::
 
     python -m rl_collision_avoidance_torch.bench --arenas 128 --steps 256
     python -m rl_collision_avoidance_torch.bench --bf16 --obs-bf16
@@ -27,12 +29,18 @@ trains on the box footprint.  Usage::
         --world stage2 --arenas 16
     python -m rl_collision_avoidance_torch.bench [--profile] --footprint rect
     python -m rl_collision_avoidance_torch.bench --train --world stage1_rect
+    python -m rl_collision_avoidance_torch.bench --scaling 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -278,6 +286,89 @@ def profile_training(arenas: int = 32, world: str = "stage1",
             "device": torch.cuda.get_device_name(), "card": card_label()}
 
 
+def scaling_rank(world: int, rank: int, init_url: str, arenas: int,
+                 steps: int, warmup: int) -> None:
+    """One of ``world`` CPU processes of :func:`measure_scaling`, joined by
+    gloo through ``init_url``: ``arenas`` mini arenas acted on by a random
+    policy, one thread; rank 0 prints ``RATE`` and the robot-steps/s of all
+    ranks together, from the first barrier after the warm-up to the
+    all-reduce after the timed steps."""
+    from torch import distributed
+
+    from .parallel import (all_reduce_sum, rank_seed, setup_distributed,
+                           teardown)
+
+    torch.set_num_threads(1)
+    if world > 1:
+        setup_distributed(init_url, world, rank, device="cpu")
+    try:
+        spec = get_world("mini")
+        env = Env(spec, device="cpu", seed=rank_seed(0))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            policy = CNNPolicy(spec.laser_frames, spec.n_beams).eval()
+        gen = torch.Generator().manual_seed(rank_seed(1))
+        state, obs = env.reset(arenas)
+        state, obs, _ = run_acting(env, policy, state, obs, warmup, gen)
+        if world > 1:
+            distributed.barrier()
+        t0 = time.perf_counter()
+        _, _, stats = run_acting(env, policy, state, obs, steps, gen)
+        finite = all_reduce_sum(stats["finite"].float())
+        seconds = time.perf_counter() - t0
+        if int(finite) != world:
+            raise RuntimeError("non-finite reward or observation")
+        if rank == 0:
+            print("RATE", world * arenas * spec.n_robots * steps / seconds,
+                  flush=True)
+    finally:
+        teardown()
+
+
+def measure_scaling(n: int, arenas: int = 4, steps: int = 256,
+                    warmup: int = 16) -> dict:
+    """Acting robot-steps/s of 1 and of ``n`` CPU processes (``arenas``
+    mini arenas each, so the work grows with the processes), each a
+    subprocess running :func:`scaling_rank`, and the efficiency
+    r_n / (n r_1).  A CPU measurement: the point is that the sharded
+    program runs and scales; processes beyond the host's cores share
+    them."""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([str(root),
+                                          os.environ.get("PYTHONPATH", "")])}
+    rates = {}
+    for world in (1, n):
+        with tempfile.TemporaryDirectory() as tmp:
+            code = [f"from rl_collision_avoidance_torch.bench import "
+                    f"scaling_rank; scaling_rank({world}, {r}, "
+                    f"'file://{tmp}/store', {arenas}, {steps}, {warmup})"
+                    for r in range(world)]
+            procs = [subprocess.Popen([sys.executable, "-c", c], env=env,
+                                      cwd=root, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in code]
+            try:
+                logs = [p.communicate(timeout=600)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"a scaling process failed:\n{log[-2000:]}")
+        rates[world] = float(next(line.split()[1] for line in
+                                  logs[0].splitlines()
+                                  if line.startswith("RATE")))
+    r1, rn = rates[1], rates[n]
+    return {"metric": f"cpu_scaling_efficiency_{n}proc",
+            "value": rn / (n * r1), "unit": "fraction",
+            "steps_per_s_1proc": r1, f"steps_per_s_{n}proc": rn,
+            "world": "mini", "arenas_per_process": arenas, "steps": steps,
+            "device": "cpu", "cpu_cores": os.cpu_count()}
+
+
 def precision(args) -> tuple[torch.dtype, torch.dtype | None]:
     """(policy dtype, obs dtype) of the parsed flags: float32 and None
     unless ``--bf16`` / ``--obs-bf16``; ``--f32`` forces both off."""
@@ -322,12 +413,28 @@ def parser() -> argparse.ArgumentParser:
                     help="acting: opt-in approximate silhouette culling "
                          "(each robot's beams test its K nearest other "
                          "robots; not the exact configuration)")
+    ap.add_argument("--scaling", type=int, default=None, metavar="N",
+                    help="CPU scaling proof: acting robot-steps/s of 1 and "
+                         "N gloo processes on mini (--arenas a process, "
+                         "default 4; --steps, --warmup)")
     return ap
 
 
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
+    if args.scaling:
+        unused = [f"--{k.replace('_', '-')}" for k in (
+            "train", "world", "params", "seed", "profile", "repeats", "bf16",
+            "obs_bf16", "f32", "footprint", "disc_cull")
+            if getattr(args, k) != ap.get_default(k)]
+        if unused:
+            ap.error(f"--scaling measures random-policy acting on mini in "
+                     f"float32; it takes --arenas, --steps and --warmup "
+                     f"only, not {' '.join(unused)}")
+        print(json.dumps(measure_scaling(args.scaling, args.arenas or 4,
+                                         args.steps, args.warmup)))
+        return
     dtypes = precision(args)
     if args.train and (args.footprint or args.disc_cull is not None):
         ap.error("--footprint and --disc-cull set the acting bench; train "

@@ -12,6 +12,7 @@
         --world stage1_rect --updates 5 --arenas 32
     python -m rl_collision_avoidance_torch.cli circle-test \
         --params results/circle_ft_params.npz --footprint rect
+    python -m rl_collision_avoidance_torch.cli bench --train --arenas 32
 
 Runs on the CUDA card (``--device cpu`` for the plain PyTorch path).  The
 training commands log through ``utils/metrics.MetricLogger`` into
@@ -23,7 +24,20 @@ command's flags of the same names.  With ``--checkpoint-dir`` they save the full
 under ``<dir>/<stage>`` and ``--resume`` continues from the newest one
 (unlike the JAX command, no full-state checkpoint is written by default).
 ``circle-test`` prints its metrics as one JSON line, as the JAX command
-does.
+does, and ``bench`` runs ``bench.py`` with the arguments that follow it.
+``--profile DIR`` traces updates 2 to 4 (``Trainer.train``).
+
+Multi-process training: run the same command once a rank, with
+``--coordinator IP:PORT`` (rank 0's address), ``--num-processes`` and this
+rank's ``--process-id``.  Each rank takes its share of ``--arenas`` (by
+default one arena a rank), rank r the card r modulo the host's cards,
+through NCCL (gloo with ``--device cpu``).  Only rank 0 writes the logs and
+the params npz; ``--checkpoint-dir`` and ``--resume`` are refused with more
+than one process, as the JAX command writes no full-state checkpoint
+then::
+
+    python -m rl_collision_avoidance_torch.cli train-stage1 --arenas 64 \
+        --coordinator 10.0.0.1:29500 --num-processes 2 --process-id 0
 """
 from __future__ import annotations
 
@@ -40,9 +54,9 @@ STAGES = {"train-stage1": "stage1", "train-stage2": "stage2",
 
 
 def _add_train(p):
-    p.add_argument("--arenas", type=int, default=1,
-                   help="world replicas (default 1, the reference's one "
-                        "world)")
+    p.add_argument("--arenas", type=int, default=None,
+                   help="world replicas over all ranks (default: one a "
+                        "rank; the reference trains one world)")
     p.add_argument("--updates", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-dir", type=str, default=None)
@@ -77,7 +91,20 @@ def _add_train(p):
                         "buffer's scans in bfloat16 (halves the largest "
                         "training tensor; ~1-2 mm quantization at 6 m)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA card)")
+                   help="torch device (default: the CUDA card; with "
+                        "--coordinator, card process-id modulo the cards)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of updates 2-4 into "
+                        "DIR (one file a rank)")
+    # Multi-process launch (torch.distributed): the same command on every
+    # rank with its own --process-id, as the JAX command's flags.
+    p.add_argument("--coordinator", type=str, default=None,
+                   metavar="IP:PORT",
+                   help="rank 0's reachable address; omit for one process")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="the number of ranks launched")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in [0, num-processes)")
 
 
 def _add_circle(p):
@@ -105,8 +132,11 @@ def train_config(stage: str, args):
     "circle_ft") as ``args`` say."""
     from .train.trainer import PRESETS
 
+    from .parallel import world_size
+
     cfg = PRESETS[stage](
-        n_arenas=args.arenas, seed=args.seed, max_updates=args.updates,
+        n_arenas=args.arenas or world_size(), seed=args.seed,
+        max_updates=args.updates,
         policy_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         obs_store_dtype=torch.bfloat16 if args.obs_bf16 else None)
     if args.world is not None:
@@ -118,9 +148,29 @@ def train_config(stage: str, args):
     return cfg
 
 
-def train(stage: str, args) -> str:
+def train(stage: str, args) -> str | None:
     """Run the training ``stage`` ("stage1", "stage2" or "circle_ft") as
-    ``args`` say; returns the params npz path."""
+    ``args`` say, as one rank of ``--num-processes`` when there is a
+    ``--coordinator``; returns the params npz path (None on ranks other
+    than 0, which write nothing)."""
+    from .parallel import setup_distributed, teardown
+
+    if args.resume and args.checkpoint_dir is None:
+        raise SystemExit("--resume needs --checkpoint-dir")
+    if (args.num_processes or 1) > 1 and (args.checkpoint_dir or args.resume):
+        raise SystemExit("--checkpoint-dir and --resume are single-process: "
+                         "the full train state is not saved across ranks")
+    # before any other CUDA use: the rank takes its card here
+    device = setup_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+    try:
+        return _train(stage, args, device or args.device)
+    finally:
+        teardown()
+
+
+def _train(stage: str, args, device) -> str | None:
+    from .parallel import rank
     from .train import Trainer
     from .utils.checkpoint import CheckpointManager
     from .utils.metrics import MetricLogger
@@ -128,10 +178,9 @@ def train(stage: str, args) -> str:
                                save_params_npz, torch_to_jax_params)
 
     cfg = train_config(stage, args)
-    if args.resume and args.checkpoint_dir is None:
-        raise SystemExit("--resume needs --checkpoint-dir")
-    trainer = Trainer(cfg, device=args.device)
-    logger = MetricLogger(args.log_dir)
+    trainer = Trainer(cfg, device=device)
+    rank0 = rank() == 0
+    logger = MetricLogger(args.log_dir) if rank0 else None
     ckpt = (CheckpointManager(os.path.join(args.checkpoint_dir, stage))
             if args.checkpoint_dir is not None else None)
     latest = ckpt.latest_step() if args.resume else None
@@ -145,7 +194,10 @@ def train(stage: str, args) -> str:
             with torch.no_grad():
                 state.policy.load_state_dict(sd)
     state = trainer.train(state, updates=args.updates,
-                          log_fn=logger.log_update, checkpoint_manager=ckpt)
+                          log_fn=logger.log_update if rank0 else None,
+                          checkpoint_manager=ckpt, profile_dir=args.profile)
+    if not rank0:
+        return None
     out = args.out or os.path.join(logger.log_dir, f"{stage}_params.npz")
     save_params_npz(out, torch_to_jax_params(state.policy.state_dict()))
     print(f"wrote {out}", flush=True)
@@ -191,10 +243,17 @@ def parser() -> argparse.ArgumentParser:
         _add_train(sub.add_parser(cmd, help=what))
     _add_circle(sub.add_parser("circle-test",
                                help="50-robot circle-swap evaluation"))
+    sub.add_parser("bench", add_help=False,
+                   help="the benchmarks (bench.py; its own arguments follow)")
     return p
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["bench"]:
+        from . import bench
+
+        return bench.main(argv[1:])
     args = parser().parse_args(argv)
     if args.cmd == "circle-test":
         circle_test(args)

@@ -1,8 +1,9 @@
 """The training loop: rollout, bootstrap, GAE and PPO, one update at a time.
 
-Counterpart of ``rl_collision_avoidance_tpu/train/trainer.py`` on one
-device, for the curriculum's three presets (stage 1, stage 2, the circle
-fine-tune).  One :meth:`Trainer.train_step` is one reference "update"
+Counterpart of ``rl_collision_avoidance_tpu/train/trainer.py``, for the
+curriculum's three presets (stage 1, stage 2, the circle fine-tune), in one
+process or in several (``parallel/dist.py``).  One
+:meth:`Trainer.train_step` is one reference "update"
 (``ppo_stage1.py:39-130``): ``horizon`` acting steps of every robot of every
 arena, the bootstrap value at the horizon, GAE over (T, E), advantage
 normalization, an arena-major flatten and the PPO epochs.  A dead robot's
@@ -20,28 +21,44 @@ mode and a bf16 dense tail) in the rollout, the bootstrap and the PPO
 update, while parameters, Adam state and the PPO losses stay float32;
 ``obs_store_dtype=torch.bfloat16`` stores the env's scan history and the
 rollout buffer's scans in bf16.
+
+Multi-process training, as the JAX trainer's arenas sharded over a mesh:
+in a process group of W ranks each rank steps its own A / W arenas
+(``parallel.arena_range``) with generators seeded from (seed, rank), rank
+0's policy is broadcast at init, the advantages are normalized over the
+whole rollout (gathered, then each rank keeps its slice), ``ppo_update``
+sums the gradients over the ranks, and the metrics are global.  Without a
+group (or with one rank) every step computes what one process computes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch.profiler import record_function
 
 from ..algo import gae
-from ..algo.ppo import Batch, PPOConfig, normalize_advantages, ppo_update
+from ..algo.ppo import (Batch, PPOConfig, normalize_shard_advantages,
+                        ppo_update)
 from ..engine.env import Env, EnvState
 from ..models import CNNPolicy, distributions
+from ..parallel import dist
 from ..utils.device import resolve_device
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, trace
 from ..worlds import get_world
+
+
+#: Updates that ``Trainer.train(profile_dir=...)`` traces, as the JAX
+#: trainer's ``profile_updates`` default.
+PROFILE_UPDATES = 3
 
 
 @dataclasses.dataclass
 class TrainConfig:
     """Hyperparameters; defaults = stage-1 reference (ppo_stage1.py:22-35)."""
     world: str = "stage1"
-    n_arenas: int = 1          # arenas (replicas of the world); reference = 1
+    n_arenas: int = 1          # arenas (replicas of the world), all ranks
     horizon: int = 128
     gamma: float = 0.99
     lam: float = 0.95
@@ -124,13 +141,19 @@ class TrainState:
 
 class Trainer:
     """Owns the env and runs updates on one device (the CUDA card unless
-    ``device`` says otherwise)."""
+    ``device`` says otherwise).  In a process group it is this rank's
+    trainer: its env holds the rank's share of ``cfg.n_arenas`` (which W
+    must divide)."""
 
     def __init__(self, cfg: TrainConfig, device=None):
         self.cfg = cfg
         self.spec = get_world(cfg.world)
         self.device = resolve_device(device)
-        self.env = Env(self.spec, device=self.device, seed=cfg.seed,
+        self.world = dist.world_size()
+        lo, hi = dist.arena_range(cfg.n_arenas)
+        self.n_local = hi - lo
+        self.env = Env(self.spec, device=self.device,
+                       seed=dist.rank_seed(cfg.seed),
                        obs_dtype=cfg.obs_store_dtype)
 
     def _policy_and_optimizer(self, seed: int):
@@ -149,13 +172,15 @@ class Trainer:
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """Fresh arenas, policy and Adam, all drawn from ``seed``
-        (``cfg.seed``)."""
+        (``cfg.seed``): the policy from ``seed`` and broadcast from rank 0,
+        the arenas and the trainer's draws from this rank's seeds."""
         seed = self.cfg.seed if seed is None else seed
         policy, optimizer = self._policy_and_optimizer(seed)
-        self.env.generator.manual_seed(seed)
-        env_state, _ = self.env.reset(self.cfg.n_arenas)
+        dist.broadcast_module(policy)
+        self.env.generator.manual_seed(dist.rank_seed(seed))
+        env_state, _ = self.env.reset(self.n_local)
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(seed + 1)
+        generator.manual_seed(dist.rank_seed(seed + 1))
         return TrainState(policy=policy, optimizer=optimizer,
                           env_state=env_state, generator=generator, update=0)
 
@@ -164,7 +189,9 @@ class Trainer:
         the policy and Adam state dicts, every ``EnvState`` tensor, the
         env's and the trainer's generator states (as bytes, which stay on
         the host whatever device the dict is restored onto) and the update
-        counter."""
+        counter.  One process only, as the JAX package's full-state
+        checkpoint (``cli.py:105-111``)."""
+        self._one_process("a full-state checkpoint")
         env_state = state.env_state
         return {"policy": state.policy.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
@@ -177,6 +204,7 @@ class Trainer:
     def load_state_dict(self, saved: dict) -> TrainState:
         """The :class:`TrainState` of :meth:`state_dict`'s ``saved`` on this
         trainer's device; the env's generator takes its saved state."""
+        self._one_process("a full-state restore")
         policy, optimizer = self._policy_and_optimizer(self.cfg.seed)
         policy.load_state_dict(saved["policy"])
         # Adam keeps its step counts on the host (it is not capturable);
@@ -194,6 +222,11 @@ class Trainer:
         return TrainState(policy=policy, optimizer=optimizer,
                           env_state=env_state, generator=generator,
                           update=int(saved["update"]))
+
+    def _one_process(self, what: str) -> None:
+        if self.world > 1:
+            raise RuntimeError(f"{what} is single-process; this trainer is "
+                               f"one of {self.world} ranks")
 
     # ------------------------------------------------------------------
 
@@ -242,8 +275,9 @@ class Trainer:
         return env_state, traj, last_value
 
     def _batch(self, traj, last_value) -> Batch:
-        """GAE on (T, E), normalized advantages, and the arena-major (A, N,
-        T) flatten of ``trainer.py:242-254``: sample i = (a, n, t)."""
+        """GAE on (T, E), advantages normalized over every rank's rollout,
+        and the arena-major (A, N, T) flatten of ``trainer.py:242-254``:
+        sample i = (a, n, t) of this rank's arenas."""
         cfg = self.cfg
         t, a, n = traj["reward"].shape
         e = a * n
@@ -251,7 +285,7 @@ class Trainer:
         targets, advs = gae.generate_train_data(
             flat_e(traj["reward"]), flat_e(traj["value"]), last_value,
             flat_e(traj["done"]).float(), cfg.gamma, cfg.lam)
-        advs = normalize_advantages(advs)
+        advs = normalize_shard_advantages(advs)
         flat_m = lambda x: x.movedim(0, 2).reshape(t * e, *x.shape[3:])
         flat_te = lambda x: x.T.reshape(t * e)
         return Batch(scans=flat_m(traj["scans"]), goal=flat_m(traj["goal"]),
@@ -265,9 +299,12 @@ class Trainer:
     def train_step(self, state: TrainState, noise=None, resets=None,
                    perms=None) -> tuple[TrainState, dict]:
         """One update.  ``noise``, ``resets`` (see :meth:`_rollout`) and
-        ``perms`` (see ``ppo_update``) let tests inject every random draw.
-        Returns the new state and the metrics as Python numbers, with the
-        keys of the JAX trainer's ``_train_step``."""
+        ``perms`` (see ``ppo_update``) let tests inject every
+        random draw.
+        Returns the new state and the metrics of every rank's rollout as
+        Python numbers, with the keys of the JAX trainer's ``_train_step``;
+        in a process group ``noise``, ``resets`` and ``perms`` are the
+        rank's own."""
         cfg = self.cfg
         with record_function("rollout"):
             env_state, traj, last_value = self._rollout(state, noise, resets)
@@ -276,49 +313,64 @@ class Trainer:
         losses = ppo_update(state.policy, state.optimizer, batch, cfg.ppo,
                             perms, state.generator)
         t, a, n = traj["reward"].shape
-        sums = torch.stack([
-            losses["policy_loss"], losses["value_loss"], losses["entropy"],
+        # sums over the ranks; every rank has as many rewards, so the mean
+        # of their means is the global mean
+        sums = dist.all_reduce_sum(torch.stack([
             (traj["done"] & traj["valid"]).sum().float(),
             traj["ep_return"].sum(), traj["reached"].sum().float(),
-            traj["crashed"].sum().float(), traj["reward"].mean()]).tolist()
+            traj["crashed"].sum().float(), traj["reward"].mean()]))
+        values = torch.cat([torch.stack([losses["policy_loss"],
+                                         losses["value_loss"],
+                                         losses["entropy"]]), sums]).tolist()
         keys = ("policy_loss", "value_loss", "entropy", "episodes",
                 "ep_return_sum", "reached", "crashed", "reward_mean")
-        metrics = dict(zip(keys, sums))
-        metrics["env_steps"] = t * a * n
+        metrics = dict(zip(keys, values))
+        metrics["reward_mean"] /= self.world
+        metrics["env_steps"] = t * a * n * self.world
         new_state = dataclasses.replace(state, env_state=env_state,
                                         update=state.update + 1)
         return new_state, metrics
 
     def train(self, state: TrainState | None = None,
               updates: int | None = None, log_fn=None,
-              checkpoint_manager=None,
-              checkpoint_every: int = 20) -> TrainState:
+              checkpoint_manager=None, checkpoint_every: int = 20,
+              profile_dir: str | None = None) -> TrainState:
         """Host loop: ``updates`` (``cfg.max_updates``) updates, each logged
         through ``log_fn`` with ``update``, ``steps_per_s`` and
         ``steps_per_s_ema`` added.  With a ``checkpoint_manager``
         (``utils/checkpoint.py``), every ``checkpoint_every``-th update
         (the reference's cadence, ``ppo_stage1.py:122-126``) saves the full
         state, and keeps it as the best when its goal share of ended
-        episodes is the highest so far."""
+        episodes is the highest so far.  With ``profile_dir``, a trace
+        (``utils/profiling.trace``, one file a rank) of
+        :data:`PROFILE_UPDATES` updates after the first, as the JAX
+        ``Trainer.train`` (``trainer.py:278-300``): updates 2 to 4, past
+        the first update's warm-up."""
         if state is None:
             state = self.init_state()
         n = updates if updates is not None else self.cfg.max_updates
+        first = min(1, n - 1)
         timer = StepTimer()
-        for _ in range(n):
-            timer.start()
-            state, metrics = self.train_step(state)   # ends in a host sync
-            metrics["steps_per_s"] = timer.stop(int(metrics["env_steps"]))
-            metrics["update"] = state.update
-            metrics["steps_per_s_ema"] = timer.ema
-            if log_fn is not None:
-                log_fn(metrics)
-            if (checkpoint_manager is not None
-                    and state.update % checkpoint_every == 0):
-                saved = self.state_dict(state)
-                checkpoint_manager.save(state.update, saved)
-                checkpoint_manager.save_best(
-                    state.update, saved,
-                    metrics["reached"] / max(metrics["episodes"], 1.0))
+        with contextlib.ExitStack() as tracing:
+            for i in range(n):
+                if profile_dir is not None and i == first:
+                    tracing.enter_context(trace(profile_dir))
+                timer.start()
+                state, metrics = self.train_step(state)  # ends in a host sync
+                metrics["steps_per_s"] = timer.stop(int(metrics["env_steps"]))
+                metrics["update"] = state.update
+                metrics["steps_per_s_ema"] = timer.ema
+                if i == first + PROFILE_UPDATES - 1:
+                    tracing.close()
+                if log_fn is not None:
+                    log_fn(metrics)
+                if (checkpoint_manager is not None
+                        and state.update % checkpoint_every == 0):
+                    saved = self.state_dict(state)
+                    checkpoint_manager.save(state.update, saved)
+                    checkpoint_manager.save_best(
+                        state.update, saved,
+                        metrics["reached"] / max(metrics["episodes"], 1.0))
         return state
 
 

@@ -1,8 +1,56 @@
-"""Step timing for the host loop (the port's copy of
-``rl_collision_avoidance_tpu/utils/profiling.py::StepTimer``)."""
+"""Profiling and debugging aids: the port's counterparts of
+``rl_collision_avoidance_tpu/utils/profiling.py`` (``trace``,
+``nan_debug``, ``StepTimer``).
+
+Usage::
+
+    with trace("/tmp/rca-trace"):      # Chrome / TensorBoard trace, a rank
+        trainer.train(updates=3)
+
+    with nan_debug():                  # raise at the first NaN a backward
+        trainer.train(updates=1)       # produces
+"""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..parallel.dist import rank
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace the enclosed block with ``torch.profiler`` (host ops, and the
+    card's kernels and copies where there is a card) and write it into
+    ``log_dir`` as ``rank<r>.pt.trace.json``, one file a rank, which
+    Chrome's ``chrome://tracing``, Perfetto and TensorBoard's profiler
+    plugin read."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir,
+                                              f"rank{rank()}.pt.trace.json"))
+
+
+@contextlib.contextmanager
+def nan_debug():
+    """Autograd's anomaly mode with its NaN check inside the block (the
+    counterpart of ``jax_debug_nans``): a backward function that returns a
+    NaN raises, naming the forward op that made it; the previous mode is
+    restored on exit."""
+    with torch.autograd.detect_anomaly(check_nan=True):
+        yield
 
 
 class StepTimer:

@@ -635,3 +635,61 @@ def test_trunk_float32_mode_unmoved_by_bf16_launches(cuda):
     trunk_cuda.twin_trunks_grads(scans, act, crt, g.bfloat16(), "bf16")
     after = f32()
     assert all(torch.equal(x, y) for x, y in zip(before, after))
+
+
+# ---------------------------------------------------------------------------
+# multi-process training (parallel/dist.py, algo/ppo.py::ppo_update)
+# ---------------------------------------------------------------------------
+
+
+def test_one_rank_nccl_update_is_the_one_process_update(cuda, tmp_path):
+    """A one-rank NCCL group, whose all-reduces really run: ppo_update at
+    stage-1 widths and a minibatch of B = 768 (2 minibatches x 2 epochs,
+    through the trunk kernels) is the update without a group bit for
+    bit."""
+    from rl_collision_avoidance_torch.algo.ppo import Batch, ppo_update
+    from rl_collision_avoidance_torch.parallel import (setup_distributed,
+                                                       teardown, world_size)
+
+    m, g = 1536, torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, device=cuda)
+    batch = Batch(scans=torch.rand((m, 3, 512), generator=g, device=cuda)
+                  - 0.5, goal=r(m, 2), speed=r(m, 2), action=r(m, 2),
+                  logprob=r(m, 1), target=r(m, 1), adv=r(m, 1),
+                  weight=(torch.rand(m, generator=g, device=cuda)
+                          > 0.2).float())
+    cfg = PPOConfig(batch_size=768, epochs=2)
+    perms = torch.stack([torch.randperm(m, generator=g, device=cuda)
+                         for _ in range(2)])
+    torch.manual_seed(1)
+    start = CNNPolicy().to(cuda).state_dict()
+
+    def run():
+        policy = CNNPolicy().to(cuda)
+        policy.load_state_dict(start)
+        opt = torch.optim.Adam(policy.parameters(), lr=5e-5)
+        launches = trunk_cuda.bwd_launches
+        out = ppo_update(policy, opt, batch, cfg, perms)
+        assert trunk_cuda.bwd_launches - launches == 4
+        return policy.state_dict(), out["minibatches"]
+
+    a, ma = run()
+    setup_distributed(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert world_size() == 1
+        b, mb = run()
+    finally:
+        teardown()
+    assert all(torch.equal(v, b[k]) for k, v in a.items())
+    assert torch.equal(ma, mb)
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
+    """Two NCCL ranks that map to one card (one card visible): each rank's
+    setup raises the error that says so, and neither hangs."""
+    from torch_dist_worker import run_ranks
+
+    outs = run_ranks("nccl_twice", {}, tmp_path,
+                     env={"CUDA_VISIBLE_DEVICES": "0"}, timeout=300)
+    for out in outs:
+        assert out["error"] and "NCCL takes one rank a device" in out["error"]
