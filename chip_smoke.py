@@ -44,7 +44,19 @@ path ran through the kernels, at those batch sizes, and stayed right:
   (the gradient Adam stepped on, the params after, the losses); and the
   time of one all-reduce of the flattened gradient on each backend.  The
   two-rank runs check correctness: two ranks on one card are no scaling
-  figure.
+  figure;
+- the world compiler (``worlds/compile.py``, its PNG reader
+  ``worlds/png.py``): stage 1, stage 2 and the circle rink compiled from the
+  port's bitmaps with no image library, bit-equal to the committed tables,
+  and one env step on the compiled stage-1 world bit-equal to the step on
+  the committed one;
+- the curriculum entry point (``examples/train_curriculum.py``): stage 1
+  at 32 arenas and stage 2 at 16 from the best stage-1 params, 2 updates
+  each with a checkpoint after each, then the ring and 16 arenas at 1 m of
+  pose noise for up to 300 steps: its files, finite metrics, and the three
+  kernels launched at each stage's batches;
+- ``MLPPolicy``: a forward and backward on the card against the CPU at
+  3,072 observations of 1,540 inputs.
 
 Right after the build it reads the library's SASS (``cuobjdump -sass``):
 every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
@@ -198,6 +210,21 @@ BF16_FLIP_SHARE = 1e-2
 MP_RANKS = 2
 MP_TIMEOUT = 420
 MP_MIN_GOAL = 0.5     # the stage-1 gate of the one-process training slice
+# The curriculum entry point (examples/train_curriculum.py) at the presets'
+# full width (stage 1 at TRAIN_ARENAS, stage 2 at S2_ARENAS, the ring and
+# CURRICULUM_EVAL_ARENAS jittered arenas) and cut in depth: from random
+# init, CURRICULUM_UPDATES updates a stage with a checkpoint after each, and
+# an eval of up to CURRICULUM_EVAL_STEPS steps.  Its three paths take the
+# batches the stage-1, stage-2 and circle-eval checks above hold.
+CURRICULUM_UPDATES = 2
+CURRICULUM_EVAL_ARENAS = 16
+CURRICULUM_EVAL_STEPS = 300
+# MLPPolicy on the card against the CPU: a forward and the gradient of a
+# mean loss over MLP_BATCH observations of MLP_OBS inputs (3 x 512 scan
+# beams, goal and speed), exact float32 (no TF32) on both.
+MLP_BATCH = 3072
+MLP_OBS = 1540
+MLP_ATOL = 1e-5
 MB_SEED = SEED + 5    # the synthetic minibatch of the split-gradient check
 # Published H100 SXM peaks (NVIDIA data sheet): HBM, non-tensor float32 and
 # dense bf16 tensor-core products.
@@ -1907,6 +1934,211 @@ def checkpoint_round_trip(tr, state):
                              "differs from the unbroken update")
 
 
+@phase("world compiler")
+def check_world_compiler(device, card: str):
+    """Compile stage 1, stage 2 and the circle rink from the port's assets
+    (its own PNG reader: no PIL here) and hold each to its committed table,
+    bit for bit; then one env step of TRAIN_ARENAS arenas on the compiled
+    stage-1 world against the same step on the committed one."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from rl_collision_avoidance_torch.engine.env import Env
+    from rl_collision_avoidance_torch.worlds import compile_world, get_world
+
+    for name in ("stage1", "stage2", "circle"):
+        t0 = time.perf_counter()
+        built = compile_world(name)
+        secs = time.perf_counter() - t0
+        table = get_world(name)
+        same = all(np.array_equal(getattr(built, f), getattr(table, f))
+                   and getattr(built, f).dtype == getattr(table, f).dtype
+                   for f in ("seg_p", "seg_e", "seg_valid"))
+        print(f"world compiler: {name}: {int(built.seg_valid.sum())} "
+              f"segments compiled from its assets in {secs:.3f} s (host "
+              f"clock); bit-equal to the committed table: {same} [{card}]",
+              flush=True)
+        if not same:
+            raise AssertionError(f"the compiled {name} differs from its "
+                                 f"committed table")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("PIL", "matplotlib"))
+    print(f"world compiler: PIL importable here: "
+          f"{importlib.util.find_spec('PIL') is not None}; loaded image "
+          f"modules: {loaded}", flush=True)
+    if loaded:
+        raise AssertionError(f"the world compiler loaded {loaded}")
+
+    outs = []
+    for spec in (compile_world("stage1"), get_world("stage1")):
+        env = Env(spec, device=device, seed=SEED)
+        state, _ = env.reset(TRAIN_ARENAS)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        act = torch.rand((TRAIN_ARENAS, spec.n_robots, 2), generator=gen,
+                         device=device) * 2 - 0.5
+        reset_counts()
+        out = env.step(state, act)
+        launches = read_counts()
+        if device.type == "cuda" and not launches.get(
+                ("lidar_obs", TRAIN_ARENAS * spec.n_robots, "float32")):
+            raise AssertionError(f"the step launched no lidar kernel: "
+                                 f"{launches}")
+        outs.append([t for o in out for t in (
+            [getattr(o, f.name) for f in dataclasses.fields(o)]
+            if dataclasses.is_dataclass(o) else [o])])
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"world compiler: one step of {TRAIN_ARENAS} arenas on the "
+          f"compiled stage-1 world bit-equal to the committed world's: "
+          f"{same} ({len(outs[0])} tensors; lidar kernel launches "
+          f"{launches})", flush=True)
+    if not same:
+        raise AssertionError("an env step on the compiled stage-1 world "
+                             "differs from the committed world's")
+
+
+@phase("curriculum")
+def run_curriculum(device, card: str) -> list:
+    """``examples/train_curriculum.curriculum`` at full width, cut in depth
+    (CURRICULUM_UPDATES, a checkpoint every update, CURRICULUM_EVAL_STEPS),
+    into a temporary root, with the launch counts set to 0 just before and
+    read just after.  Checks its files, that its training metrics and
+    params are finite, the eval's shape, and the launches of each stage
+    (the eval's: lidar and trunk forward at the ring's and the jittered
+    arenas' batches).  Returns the (path, world, launches) of its three
+    stages, the launches split by batch."""
+    import csv
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from rl_collision_avoidance_torch.examples import train_curriculum
+    from rl_collision_avoidance_torch.train import TrainConfig, Trainer
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+
+    cfgs = {"stage1": TrainConfig.stage1(n_arenas=TRAIN_ARENAS),
+            "stage2": TrainConfig.stage2(n_arenas=S2_ARENAS)}
+    with tempfile.TemporaryDirectory() as root:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_curriculum.curriculum(
+            updates=(CURRICULUM_UPDATES, CURRICULUM_UPDATES),
+            n_arenas=(TRAIN_ARENAS, S2_ARENAS, CURRICULUM_EVAL_ARENAS),
+            checkpoint_every=1, max_steps=CURRICULUM_EVAL_STEPS, root=root,
+            device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        for stage in cfgs:
+            params = jax_params_to_torch(load_jax_npz(out[f"{stage}_params"]))
+            with open(os.path.join(root, "log", stage, "metrics.csv")) as f:
+                rows = list(csv.DictReader(f))
+            best = os.path.join(root, "checkpoints", stage, "best", "state.pt")
+            finite = (all(bool(torch.isfinite(v).all())
+                          for v in params.values())
+                      and all(math.isfinite(float(r[k])) for r in rows
+                              for k in ("policy_loss", "value_loss",
+                                        "entropy", "reward_mean")))
+            print(f"curriculum: {stage}: {len(rows)} updates logged, best "
+                  f"checkpoint {os.path.isfile(best)}, params and metrics "
+                  f"finite {finite}: "
+                  + ", ".join(f"{k} {float(rows[-1][k]):.6g}" for k in
+                              ("policy_loss", "value_loss", "entropy",
+                               "episodes", "reached")), flush=True)
+            if not (len(rows) == CURRICULUM_UPDATES and os.path.isfile(best)
+                    and finite):
+                raise AssertionError(f"curriculum: {stage} left no log, no "
+                                     f"best checkpoint or a non-finite value")
+    ring, jitter = (out["eval"][k] for k in ("deterministic_symmetric",
+                                              "jitter_1.0m"))
+    if not (ring["n_robots"] == jitter["n_robots"] == 50
+            and jitter["n_arenas"] == CURRICULUM_EVAL_ARENAS
+            and 0.0 <= jitter["success_rate_mean"] <= 1.0):
+        raise AssertionError(f"curriculum: a malformed eval {out['eval']}")
+    print(f"curriculum: stage 1 ({TRAIN_ARENAS} arenas), stage 2 "
+          f"({S2_ARENAS}), {CURRICULUM_UPDATES} updates each, and the eval "
+          f"(the ring, {CURRICULUM_EVAL_ARENAS} arenas at 1.0 m, up to "
+          f"{CURRICULUM_EVAL_STEPS} steps) in {wall:.2f} s wall on "
+          f"{device} [{card}]; kernel launches (name, batch, precision): "
+          f"{launches}", flush=True)
+
+    paths, expected = [], {}
+    for stage, cfg in cfgs.items():
+        tr = Trainer(cfg, device=device)
+        steps = (cfg.horizon * tr.n_local * tr.spec.n_robots
+                 // cfg.ppo.batch_size * cfg.ppo.epochs)
+        want = training_launches(tr, CURRICULUM_UPDATES, steps)
+        # the stage's init_state resets its arenas: one more lidar pass
+        want[next(k for k in want if k[0].startswith("lidar"))] += 1
+        expected.update(want)
+        paths.append((f"curriculum, {stage}", cfg.world,
+                      {k: launches.get(k, 0) for k in want}))
+    evals = {k: v for k, v in launches.items() if k not in expected}
+    paths.append(("curriculum, eval", "circle", evals))
+    if device.type != "cuda":
+        return paths
+    robots = {50, CURRICULUM_EVAL_ARENAS * 50}
+    if {(n, b) for n, b, _ in evals} != {(n, b) for n in ("lidar_obs",
+                                                           "twin_trunks")
+                                         for b in robots}:
+        raise AssertionError(f"curriculum: the eval's kernels did not run "
+                             f"at its batches: {evals}")
+    got = {k: launches[k] for k in expected if k in launches}
+    if got != expected:
+        raise AssertionError(f"curriculum: the training stages launched "
+                             f"{got}, not {expected}")
+    return paths
+
+
+@phase("mlp policy")
+def check_mlp(device, card: str):
+    """MLPPolicy's forward and the gradients of a mean loss on the card
+    against the same module on the CPU, within MLP_ATOL (plain PyTorch: the
+    JAX package's MLPPolicy has no kernel either)."""
+    import copy
+
+    import torch
+
+    from rl_collision_avoidance_torch.models import MLPPolicy
+    from rl_collision_avoidance_torch.ops import trunk_cuda
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        cpu = MLPPolicy(MLP_OBS)
+    gpu = copy.deepcopy(cpu).to(device)
+    obs = torch.randn((MLP_BATCH, MLP_OBS),
+                      generator=torch.Generator().manual_seed(SEED))
+
+    def run(policy, x):
+        value, mean, logstd = policy(x)
+        loss = value.square().mean() + mean.square().mean() + logstd.sum()
+        grads = torch.autograd.grad(loss, list(policy.parameters()))
+        return [value, mean, *grads]
+
+    with trunk_cuda.exact_float32():
+        (got, ms) = timed(lambda: run(gpu, obs.to(device)), device)
+    want = run(cpu, obs)
+    names = ["value", "mean", *(f"grad {n}" for n, _ in
+                                cpu.named_parameters())]
+    errs = {n: float((g.detach().cpu() - w.detach()).abs().max())
+            for n, g, w in zip(names, got, want)}
+    took = "" if ms is None else (f"; forward and backward {ms:.3f} ms "
+                                  f"(CUDA events, first call)")
+    print(f"mlp policy: B = {MLP_BATCH}, {MLP_OBS} inputs, {device} against "
+          f"the CPU, max |diff| {json.dumps(errs)} (atol {MLP_ATOL}){took} "
+          f"[{card}]", flush=True)
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= MLP_ATOL:
+        raise AssertionError(f"MLPPolicy on the card differs from the CPU "
+                             f"by {errs[worst]} in {worst}")
+
+
 def main() -> int:
     if not (ROOT / "rl_collision_avoidance_torch").is_dir():
         print("chip_smoke.py: the rl_collision_avoidance_torch package is not "
@@ -1924,6 +2156,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     build_kernels()
     check_sass()
+    check_world_compiler(device, label)
     from rl_collision_avoidance_torch.train import TrainConfig
     from rl_collision_avoidance_torch.worlds import get_world
 
@@ -1963,6 +2196,8 @@ def main() -> int:
               check_lidar(device, "circle", 1, discs=False),
               check_lidar(device, "circle", RECT_ARENAS, discs=False),
               check_trunk(device, "circle", RECT_ARENAS * n["circle"]),
+              # the curriculum's jittered eval
+              check_lidar(device, "circle", CURRICULUM_EVAL_ARENAS),
               # a rank's shapes in the two-rank stage-1 training
               check_lidar(device, "stage1", mp_arenas),
               *(f(device, "stage1", b, precision)
@@ -2031,6 +2266,8 @@ def main() -> int:
                                     RECT_CULL_K)),
               (f"circle eval, rect, {RECT_ARENAS} arenas", "circle",
                run_circle(device, label, RECT_ARENAS, RECT_NOISE, "rect"))]
+    paths += run_curriculum(device, label)
+    check_mlp(device, label)
     silhouettes = [time_silhouettes(device, label, "stage1_rect",
                                     TRAIN_ARENAS),
                    time_silhouettes(device, label, "circle", 1),

@@ -385,3 +385,39 @@ class Env:
             pose = torch.where(mask[..., None], pose, state.pose)
         dist = torch.linalg.vector_norm(state.goal - pose[..., :2], dim=-1)
         return dataclasses.replace(state, pose=pose, dist=dist)
+
+    # single-arena conveniences (tests, simple scripts)
+
+    def reset1(self, pose: torch.Tensor | None = None,
+               goal: torch.Tensor | None = None) -> tuple[EnvState, Obs]:
+        """:meth:`reset` of one arena, the arena axis dropped from the state
+        and obs; ``pose`` (N, 3) and ``goal`` (N, 2) an optional sample."""
+        state, obs = self.reset(1, _arena(pose), _arena(goal))
+        return _unarena(state), _unarena(obs)
+
+    def step1(self, state: EnvState, action: torch.Tensor,
+              reset_pose: torch.Tensor | None = None,
+              reset_goal: torch.Tensor | None = None):
+        """:meth:`step` of one arena's state without the arena axis: action
+        (N, 2), optional reset sample (N, 3) and (N, 2); returns (state',
+        obs', reward, done, info), each without the arena axis."""
+        out = self.step(_arena(state), action[None], _arena(reset_pose),
+                        _arena(reset_goal))
+        return tuple(_unarena(o) for o in out)
+
+
+def _map_tensors(x, fn):
+    """``fn`` on a tensor, or on every field of a state/obs/info record."""
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: fn(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return fn(x)
+
+
+def _arena(x):
+    """A leading arena axis of 1 on ``x`` (None stays None)."""
+    return None if x is None else _map_tensors(x, lambda t: t[None])
+
+
+def _unarena(x):
+    return _map_tensors(x, lambda t: t[0])

@@ -1,4 +1,4 @@
 from . import distributions
-from .policy import CNNPolicy, load_policy
+from .policy import CNNPolicy, MLPPolicy, load_policy
 
-__all__ = ["CNNPolicy", "distributions", "load_policy"]
+__all__ = ["CNNPolicy", "MLPPolicy", "distributions", "load_policy"]

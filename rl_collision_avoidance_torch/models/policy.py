@@ -1,5 +1,5 @@
-"""The twin-trunk Gaussian actor-critic (``model/net.py:16-80``) as an
-``nn.Module``.
+"""The twin-trunk Gaussian actor-critic (``model/net.py:16-80``) and the
+reference's small MLP alternative (``:83-133``) as ``nn.Module``s.
 
 Counterpart of ``rl_collision_avoidance_tpu/models/policy.py::CNNPolicy``
 in the reference PyTorch layout: Conv1d over (batch, frames, beams), a
@@ -20,6 +20,11 @@ dense tail casts its weights and inputs to bf16 inside ``forward`` (an
 explicit cast, not autocast, so the CPU and the card compute the same
 function); ``value`` and ``mean`` come back as float32 and ``logstd``
 stays float32.  Parameters are float32 in either mode.
+
+:class:`MLPPolicy` is the counterpart of the JAX package's ``MLPPolicy``:
+plain PyTorch (the JAX module has no kernel either), in float32 or, with
+the same explicit casts, bf16.  :func:`load_policy` reads a JAX npz or a
+reference ``.pth`` checkpoint into a ``CNNPolicy``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from torch.nn import functional as F
 
 from ..ops.trunk_cuda import twin_trunks
 from ..utils.device import resolve_device
-from ..utils.params import jax_params_to_torch, load_jax_npz
+from ..utils.params import jax_params_to_torch, load_jax_npz, load_pth
 
 
 def _conv_len(n: int, k: int) -> int:
@@ -40,6 +45,19 @@ def _conv_len(n: int, k: int) -> int:
 PRECISION = {torch.float32: "float32", torch.bfloat16: "bf16"}
 
 
+def _check_dtype(net: str, dtype: torch.dtype) -> None:
+    if dtype not in PRECISION:
+        raise ValueError(f"{net} computes in float32 or bfloat16, not {dtype}")
+
+
+def dense(x, layer: nn.Linear, dtype: torch.dtype):
+    """``layer`` on ``x`` in ``dtype``: in bf16 as the JAX package's bf16
+    dense layers, x @ W + b with both results rounded to bf16."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class CNNPolicy(nn.Module):
     """forward(scans (B, F, NB), goal (B, 2), speed (B, 2))
     -> (value (B, 1), mean (B, 2), logstd (2,)), float32; ``dtype`` is the
@@ -48,9 +66,7 @@ class CNNPolicy(nn.Module):
     def __init__(self, frames: int = 3, beams: int = 512,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if dtype not in PRECISION:
-            raise ValueError(f"CNNPolicy computes in float32 or bfloat16, "
-                             f"not {dtype}")
+        _check_dtype("CNNPolicy", dtype)
         self.dtype = dtype
         flat = 32 * _conv_len(_conv_len(beams, 5), 3)
         self.logstd = nn.Parameter(torch.zeros(2))
@@ -75,12 +91,8 @@ class CNNPolicy(nn.Module):
 
     def dense(self, x, layer: nn.Linear):
         """``layer`` on ``x`` in the policy's dtype: in bf16 as
-        ``cnn_pallas_apply``'s ``dense``, x @ W + b with both results
-        rounded to bf16."""
-        if self.dtype == torch.float32:
-            return layer(x)
-        return (F.linear(x, layer.weight.to(self.dtype))
-                + layer.bias.to(self.dtype))
+        ``cnn_pallas_apply``'s ``dense`` (see :func:`dense`)."""
+        return dense(x, layer, self.dtype)
 
     def heads(self, feats, goal, speed):
         """The dense tail on the (2, B, 256) trunk features, in the
@@ -105,11 +117,63 @@ class CNNPolicy(nn.Module):
         return self.heads(feats, goal, speed)
 
 
+class MLPPolicy(nn.Module):
+    """forward(obs (B, obs_dim)) -> (value (B, 1), mean (B, action_dim),
+    logstd (action_dim,)), float32: two tanh layers of 64 and 128 for the
+    actor and for the critic, a linear mean and value.  PyTorch's default
+    init, with the ``mu`` weight scaled by 0.1; ``value_fc3`` stays
+    unscaled, as in the reference, whose out-of-place ``mul`` leaves it so
+    (``model/net.py:98``).  ``dtype`` is the compute dtype (float32 or
+    bfloat16); parameters are float32."""
+
+    def __init__(self, obs_dim: int, action_dim: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_dtype("MLPPolicy", dtype)
+        self.dtype = dtype
+        self.logstd = nn.Parameter(torch.zeros(action_dim))
+        self.act_fc1 = nn.Linear(obs_dim, 64)
+        self.act_fc2 = nn.Linear(64, 128)
+        self.mu = nn.Linear(128, action_dim)
+        with torch.no_grad():
+            self.mu.weight.mul_(0.1)
+        self.value_fc1 = nn.Linear(obs_dim, 64)
+        self.value_fc2 = nn.Linear(64, 128)
+        self.value_fc3 = nn.Linear(128, 1)
+
+    def forward(self, obs):
+        x = obs.to(self.dtype)
+        layer = lambda h, fc: dense(h, fc, self.dtype)
+        a = torch.tanh(layer(torch.tanh(layer(x, self.act_fc1)),
+                             self.act_fc2))
+        mean = layer(a, self.mu)
+        v = torch.tanh(layer(torch.tanh(layer(x, self.value_fc1)),
+                             self.value_fc2))
+        value = layer(v, self.value_fc3)
+        return value.float(), mean.float(), self.logstd
+
+
 def load_policy(path, device=None, frames: int = 3, beams: int = 512,
                 dtype: torch.dtype = torch.float32) -> CNNPolicy:
     """A ``CNNPolicy`` computing in ``dtype`` on ``device`` (the CUDA card
-    unless told otherwise) with the weights of a JAX ``save_params_npz``
-    file."""
+    unless told otherwise) with the weights of ``path``: a JAX
+    ``save_params_npz`` file (``.npz``), or a reference checkpoint, the
+    ``torch.save``d ``CNNPolicy.state_dict()`` (any other name, e.g.
+    ``policy/stage2.pth``), whose keys and shapes are checked first."""
     policy = CNNPolicy(frames, beams, dtype)
-    policy.load_state_dict(jax_params_to_torch(load_jax_npz(path)))
+    if str(path).endswith(".npz"):
+        state = jax_params_to_torch(load_jax_npz(path))
+    else:
+        state = load_pth(path)
+        want = {k: tuple(v.shape) for k, v in policy.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in state.items()}
+        wrong = sorted(k for k in want.keys() & got.keys()
+                       if want[k] != got[k])
+        if want.keys() != got.keys() or wrong:
+            raise ValueError(
+                f"{path}: not the state dict of a CNNPolicy({frames}, "
+                f"{beams}): missing {sorted(want.keys() - got.keys())}, "
+                f"unexpected {sorted(got.keys() - want.keys())}, shapes "
+                f"{[(k, got[k], want[k]) for k in wrong]} (found, wanted)")
+    policy.load_state_dict(state)
     return policy.to(resolve_device(device)).eval()

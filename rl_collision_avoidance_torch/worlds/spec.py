@@ -3,22 +3,30 @@
 Counterpart of ``rl_collision_avoidance_tpu/worlds/spec.py``: the
 curriculum's worlds ``stage1``, ``stage2``, ``circle`` and
 ``circle_train``, ``stage1_rect`` (stage 1 with Stage's exact box
-footprint), and the small ``mini`` test room.  The wall geometry
-comes from the committed literal tables in :mod:`.stage1_geometry`,
-:mod:`.stage2_geometry` and :mod:`.circle_geometry`, so no world is compiled
-from an image at run time.  Array members are numpy;
+footprint), and the small ``mini`` test room.  The worlds read their wall
+geometry from the committed literal tables in :mod:`.stage1_geometry`,
+:mod:`.stage2_geometry` and :mod:`.circle_geometry`, so that building one
+is fast and reads no image.  Those tables are what the world compiler
+(:mod:`.compile`) gives for the Stage bitmaps in ``assets/`` and the stage-2
+polygon obstacles: :func:`compile_world` rebuilds a world's geometry that
+way, bit for bit the same.  Array members are numpy;
 :class:`~..engine.env.Env` moves them to its device.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 
 import numpy as np
 
 from .circle_geometry import SEGMENTS as _RINK60_SEGMENTS
+from .compile import (boundary_segments, pack_segments, polygon_segments,
+                      segments_from_bitmap)
 from .stage1_geometry import SEGMENTS as _STAGE1_SEGMENTS
 from .stage2_geometry import SEGMENTS as _STAGE2_SEGMENTS
+
+_ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 
 
 class ResetMode(enum.Enum):
@@ -88,27 +96,6 @@ class WorldSpec:
     @property
     def n_segments(self) -> int:
         return int(self.seg_p.shape[0])
-
-
-def boundary_segments(sx: float, sy: float):
-    """Four border walls (floorplan ``boundary 1``, worlds/stage1.world:27)."""
-    hx, hy = sx / 2.0, sy / 2.0
-    c = [(-hx, -hy), (hx, -hy), (hx, hy), (-hx, hy)]
-    return [(c[i], c[(i + 1) % 4]) for i in range(4)]
-
-
-def pack_segments(segs, pad_to: int = 128):
-    """Pack a segment list into padded (seg_p, seg_e, valid) arrays."""
-    n = len(segs)
-    total = max(pad_to, ((n + pad_to - 1) // pad_to) * pad_to)
-    seg_p = np.zeros((total, 2), dtype=np.float32)
-    seg_e = np.zeros((total, 2), dtype=np.float32)
-    valid = np.zeros((total,), dtype=bool)
-    for i, (p0, p1) in enumerate(segs):
-        seg_p[i] = p0
-        seg_e[i] = (p1[0] - p0[0], p1[1] - p0[1])
-        valid[i] = True
-    return seg_p, seg_e, valid
 
 
 def _unpack(rows):
@@ -183,6 +170,91 @@ def stage2_tables():
     for g in range(len(bounds) - 1):
         group_id[bounds[g]:bounds[g + 1]] = g
     return poses, goals, group_id
+
+
+# Stage's ray-trace resolution, the geometry granularity of the reference
+# simulator (worlds/stage1.world:3 `resolution 0.2`).
+_STAGE_RESOLUTION = 0.2
+
+
+def _bitmap_world_segments(png: str, size_m: float,
+                           resolution: float = _STAGE_RESOLUTION,
+                           simplify_tol: float | None = None,
+                           reach_seeds=None):
+    """The wall segments of the square bitmap world ``assets/<png>`` of
+    ``size_m`` meters a side, as the JAX package's ``_bitmap_world_segments``
+    compiles them.
+
+    ``reach_seeds``: world points robots can reach; the space outside their
+    free component is filled solid (exact: it can never be seen or
+    touched), which also covers the floorplan's ``boundary 1`` walls.
+    ``simplify_tol`` defaults to the raster resolution: chords within one
+    raster cell of the contour stay inside Stage's own granularity and cut
+    the segment count (stage-1 rink: 154 -> 27)."""
+    if simplify_tol is None:
+        simplify_tol = resolution
+    segs = segments_from_bitmap(os.path.join(_ASSETS, png), (size_m, size_m),
+                                resolution, simplify_tol, reach_seeds)
+    if reach_seeds is None:
+        segs += boundary_segments(size_m, size_m)  # floorplan `boundary 1`
+    return segs
+
+
+def _stage2_obstacle_segments():
+    """The nine polygon obstacles of worlds/stage2.world:168-296: Stage
+    normalizes block points to their bounding box and scales them into the
+    model `size` (0.7 x 0.7 m) centered at `pose`."""
+    obstacles = [
+        ((12, -9), [(0, 0), (0, 1), (0.75, 1), (1, 0.75), (1, 0.25), (0.75, 0)]),
+        ((16, -7), [(0.225, 0.0), (0.208, 0.086), (0.159, 0.159), (0.086, 0.208),
+                    (0.0, 0.225), (-0.086, 0.208), (-0.159, 0.159), (-0.208, 0.086),
+                    (-0.225, 0.0), (-0.208, -0.086), (-0.159, -0.159), (-0.086, -0.208),
+                    (-0.0, -0.225), (0.086, -0.208), (0.159, -0.159), (0.208, -0.086)]),
+        ((17, -9), [(-0.02, -0.077), (0.078, -0.077), (0.078, 0.077), (-0.02, 0.077)]),
+        ((14, -11), [(-3, -1.5), (-3, 0.5), (-2, 1.5), (2, 1.5), (3, 0.5), (3, -1.5)]),
+        ((10, -10), [(-3, -1.5), (-3, 0.5), (-2, 1.5), (2, 0.7), (3, 0.5), (3, 0)]),
+        ((13, -7), [(0, -1.5), (0, 0.5), (0.5, -0.5), (1, 0.4), (2, -0.5), (0.5, -1)]),
+        ((10, -7), [(0, 0), (0.3, 0.5), (0, 1), (0.4, 0.7), (0.5, 0)]),
+        ((18, -11), [(-3, -1.5), (-3, 0.5), (-2, 1.5), (2, 0.7), (3, 0.5), (3, 0)]),
+        ((15, -9), [(0, -1.5), (0, 0.5), (0.5, -0.5), (1, 0.4), (2, -0.5), (0.5, -1)]),
+    ]
+    segs = []
+    for pose, pts in obstacles:
+        segs += polygon_segments(pts, size=(0.7, 0.7), center=pose)
+    return segs
+
+
+def _stage2_segments():
+    """testenv.png at 40 m with every scenario pose, goal and corridor seed
+    as a reach seed, then the polygon obstacles (the JAX ``stage2()``)."""
+    poses, goals, _ = stage2_tables()
+    seeds = [tuple(p[:2]) for p in poses] + [tuple(g) for g in goals[:34]]
+    seeds += [(14.0, -3.0), (14.0, -16.0)]  # corridor spawn band
+    return (_bitmap_world_segments("testenv.png", 40.0, reach_seeds=seeds)
+            + _stage2_obstacle_segments())
+
+
+def _rink_segments(size_m: float):
+    return _bitmap_world_segments("rink.png", size_m,
+                                  reach_seeds=[(0.0, 0.0)])
+
+
+#: Each world's geometry as the compiler builds it from its sources.
+_SOURCES = {"stage1": lambda: _rink_segments(20.0),
+            "stage1_rect": lambda: _rink_segments(20.0),
+            "stage2": _stage2_segments,
+            "circle": lambda: _rink_segments(60.0),
+            "circle_train": lambda: _rink_segments(60.0),
+            "mini": lambda: boundary_segments(20.0, 20.0)}
+
+
+def compile_world(name: str) -> WorldSpec:
+    """The world ``name`` with its wall geometry compiled from its sources
+    (bitmap, reach seeds, polygons) instead of read from the committed
+    table; the two are equal bit for bit."""
+    seg_p, seg_e, valid = pack_segments(_SOURCES[name]())
+    return dataclasses.replace(get_world(name), seg_p=seg_p, seg_e=seg_e,
+                               seg_valid=valid)
 
 
 def stage1() -> WorldSpec:

@@ -41,29 +41,13 @@ from rl_collision_avoidance_torch.ops import trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
 from rl_collision_avoidance_torch.utils.params import jax_params_to_torch
 from rl_collision_avoidance_torch.worlds import mini
-from torch_parity import DELTA_NORM, jax_reset_draw, to_torch_state
+from torch_parity import (BF16_ATOL as ATOL, DELTA_NORM, FLIP_SHARE, ULP,
+                          assert_flips_within_ulp, jax_reset_draw,
+                          to_torch_state)
 
 B = 40                 # not a multiple of the Pallas tile of 16
-ULP = 2.0 ** -7        # one bf16 ulp is at most this share of a value
-FLIP_SHARE = 1e-2      # as chip_smoke.BF16_FLIP_SHARE
-# Float32 sums of the same terms in another order: features and outputs
-# to 1e-5, the float32 tests' order (tests/test_torch_trunk.py reads 3e-6).
-ATOL = RTOL = 1e-5
 DEFAULT = dict(tile_fwd=16, tile_bwd=16, precision="default", interpret=True)
 BF16 = torch.bfloat16
-
-
-def assert_flips_within_ulp(mine, ref, what, atol=ATOL, rtol=RTOL):
-    """``mine`` against ``ref`` (arrays): within atol + rtol |ref|, but for
-    rounding flips, each within atol + ULP |ref|, at most FLIP_SHARE of
-    them.  Returns the flips."""
-    mine, ref = (np.asarray(x, np.float64) for x in (mine, ref))
-    diff = np.abs(mine - ref)
-    flips = int((diff > atol + rtol * np.abs(ref)).sum())
-    worst = float((diff - atol - ULP * np.abs(ref)).max())
-    assert worst <= 0, f"{what}: an element {worst:.3g} beyond one bf16 ulp"
-    assert flips <= FLIP_SHARE * diff.size, (what, flips, diff.size)
-    return flips
 
 
 def bf16_np(x):

@@ -1,5 +1,6 @@
-"""What the port may import and load: no JAX, flax, PIL or JAX package, the
-world geometry as committed literals, and chip_smoke.py's refusals."""
+"""What the port may import and load: no JAX, flax, PIL, matplotlib or JAX
+package, the world geometry as committed literals, and chip_smoke.py's
+refusals."""
 import os
 import shutil
 import subprocess
@@ -14,7 +15,7 @@ from rl_collision_avoidance_torch.ops import build
 from rl_collision_avoidance_torch.worlds import stage1
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "PIL", "rl_collision_avoidance_tpu")
+FORBIDDEN = ("jax", "flax", "PIL", "matplotlib", "rl_collision_avoidance_tpu")
 NO_CARD = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
 _SLICE = """
@@ -25,12 +26,15 @@ from rl_collision_avoidance_torch import bench, cli
 from rl_collision_avoidance_torch.algo import gae, ppo
 from rl_collision_avoidance_torch.engine.env import Env
 from rl_collision_avoidance_torch.eval import run_circle_eval
-from rl_collision_avoidance_torch.models import load_policy
+from rl_collision_avoidance_torch.examples import train_curriculum
+from rl_collision_avoidance_torch.models import MLPPolicy, load_policy
 from rl_collision_avoidance_torch.ops import build, lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
 from rl_collision_avoidance_torch.utils import checkpoint, device, metrics
-from rl_collision_avoidance_torch.utils import params, profiling
+from rl_collision_avoidance_torch.utils import params, profiling, render
+from rl_collision_avoidance_torch.utils.running_stats import RunningMeanStd
 from rl_collision_avoidance_torch.worlds import circle, stage1, stage2
+from rl_collision_avoidance_torch.worlds import compile_world, png
 
 env = Env(stage1(), device="cpu")
 policy = load_policy("results/stage1_params.npz", device="cpu")
@@ -54,6 +58,12 @@ bf16 = Trainer(TrainConfig(world="mini", horizon=4,
                            obs_store_dtype=torch.bfloat16), device="cpu")
 _, m = bf16.train_step(bf16.init_state())
 assert all(v == v for v in m.values())
+assert int(compile_world("stage1").seg_valid.sum()) == 27   # rink.png
+assert int(compile_world("stage2").seg_valid.sum()) == 166  # testenv.png
+s1, o1 = env.reset1()
+env.step1(s1, torch.zeros(24, 2))
+MLPPolicy(1540)(torch.zeros(3, 1540))
+RunningMeanStd.create((2,), device="cpu").update(torch.ones(4, 2))
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r}))
 """
@@ -66,9 +76,11 @@ def _run(args, cwd=ROOT, env=None):
 
 def test_port_imports_nothing_of_jax():
     """Importing the port and chip_smoke.py, and running the stage-1 acting
-    slice, a training update, a stage-2 env step, two circle-eval steps and
-    a bf16 training update (bf16 policy and scans) on the CPU, loads none
-    of JAX, flax, PIL or the JAX package."""
+    slice, a training update, a stage-2 env step, two circle-eval steps, a
+    bf16 training update (bf16 policy and scans), the world compiler on
+    both bitmaps, reset1/step1, an MLPPolicy forward and a RunningMeanStd
+    update on the CPU, loads none of JAX, flax, PIL, matplotlib or the JAX
+    package."""
     code = _SLICE.replace("{FORBIDDEN!r}", repr(set(FORBIDDEN)))
     proc = _run(["-c", code], env=NO_CARD)
     assert proc.returncode == 0, proc.stderr

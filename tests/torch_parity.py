@@ -98,6 +98,30 @@ def check_scans(env, mine, ref, pose, prev=None, reset=None):
 
 
 # ---------------------------------------------------------------------------
+# bf16 outputs (see tests/test_torch_bf16.py's module docstring)
+# ---------------------------------------------------------------------------
+
+ULP = 2.0 ** -7        # one bf16 ulp is at most this share of a value
+FLIP_SHARE = 1e-2      # as chip_smoke.BF16_FLIP_SHARE
+# Float32 sums of the same terms in another order: features and outputs
+# to 1e-5, the float32 tests' order (tests/test_torch_trunk.py reads 3e-6).
+BF16_ATOL = BF16_RTOL = 1e-5
+
+
+def assert_flips_within_ulp(mine, ref, what, atol=BF16_ATOL, rtol=BF16_RTOL):
+    """``mine`` against ``ref`` (arrays): within atol + rtol |ref|, but for
+    rounding flips, each within atol + ULP |ref|, at most FLIP_SHARE of
+    them.  Returns the flips."""
+    mine, ref = (np.asarray(x, np.float64) for x in (mine, ref))
+    diff = np.abs(mine - ref)
+    flips = int((diff > atol + rtol * np.abs(ref)).sum())
+    worst = float((diff - atol - ULP * np.abs(ref)).max())
+    assert worst <= 0, f"{what}: an element {worst:.3g} beyond one bf16 ulp"
+    assert flips <= FLIP_SHARE * diff.size, (what, flips, diff.size)
+    return flips
+
+
+# ---------------------------------------------------------------------------
 # env steps: the JAX state and reset draws on the port's side
 # ---------------------------------------------------------------------------
 
