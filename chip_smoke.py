@@ -56,7 +56,19 @@ path ran through the kernels, at those batch sizes, and stayed right:
   pose noise for up to 300 steps: its files, finite metrics, and the three
   kernels launched at each stage's batches;
 - ``MLPPolicy``: a forward and backward on the card against the CPU at
-  3,072 observations of 1,540 inputs.
+  3,072 observations of 1,540 inputs;
+- stage-2 training in bf16 (``--bf16 --obs-bf16``, 16 arenas, a warm-up and
+  one timed update, goal share >= 0.20), with the bf16 trunk kernels held
+  to their plain versions at its batches, 704 and 8,192;
+- the results pipeline (``examples/make_results.py``, through its
+  ``main``): the circle fine-tune at 16 arenas with a jittered-circle
+  selection eval (8 arenas at 0.3 m) after each of 2 updates, the kept
+  params held to ``select_score``'s choice, then the sweep (the ring, 32
+  arenas at 0.1, 0.3 and 1.0 m, the 12-robot ring, the stage-2 block), each
+  eval cut to 300 steps; then the bf16 fine-tune (``--bf16``, with and
+  without ``--obs-bf16``) cut the same way, its evals in float32; the bf16
+  trunk kernels held at the fine-tune's batches, 800 and 10,240, on bf16
+  and on float32 scans.
 
 Right after the build it reads the library's SASS (``cuobjdump -sass``):
 every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
@@ -97,7 +109,8 @@ CIRCLE_PARAMS = ROOT / "results" / "circle_ft_params.npz"
 #: The weights each world's checks and paths use: stage 2 warm-starts from
 #: stage 1, the circle eval and the fine-tune use the fine-tuned policy.
 WORLD_PARAMS = {"stage1": PARAMS, "stage2": PARAMS, "circle": CIRCLE_PARAMS,
-                "circle_train": CIRCLE_PARAMS, "stage1_rect": PARAMS}
+                "circle_train": CIRCLE_PARAMS, "stage1_rect": PARAMS,
+                "circle_12": CIRCLE_PARAMS}
 ARENAS = 128          # the JAX bench's accelerator default: 3,072 robots
 SLICE_STEPS = 256     # timed acting steps (after WARMUP_STEPS)
 WARMUP_STEPS = 8
@@ -219,6 +232,19 @@ MP_MIN_GOAL = 0.5     # the stage-1 gate of the one-process training slice
 CURRICULUM_UPDATES = 2
 CURRICULUM_EVAL_ARENAS = 16
 CURRICULUM_EVAL_STEPS = 300
+# The results pipeline (examples/make_results.py) through its main, at the
+# fine-tune's full width (FT_ARENAS arenas x 50 robots; the selection eval
+# over make_results.SELECT_ARENAS arenas at SELECT_NOISE; the sweep over
+# EVAL_ARENAS arenas, the ring and the 12-robot ring), cut in depth:
+# PIPELINE_UPDATES updates with a selection eval after each (in place of
+# 2,000 and every 50), and PIPELINE_EVAL_STEPS steps in every eval (in place
+# of 3,000).  It warm-starts from the fine-tuned weights, which stand in for
+# stage2_params.npz (left out of the export), in float32 and in bf16 (with
+# and without bf16 scans).  Stage 2 trains in bf16 for S2_BF16_UPDATES
+# updates (the first a warm-up) with the float32 phase's goal-share gate.
+PIPELINE_UPDATES = 2
+PIPELINE_EVAL_STEPS = 300
+S2_BF16_UPDATES = 2
 # MLPPolicy on the card against the CPU: a forward and the gradient of a
 # mean loss over MLP_BATCH observations of MLP_OBS inputs (3 x 512 scan
 # beams, goal and speed), exact float32 (no TF32) on both.
@@ -244,6 +270,15 @@ def phase(name):
             return out
         return run
     return wrap
+
+
+def spec_of(world: str):
+    """The WorldSpec of a world name of WORLD_PARAMS: ``circle_12`` is the
+    circle with 12 robots on its 25 m ring (the sweep's ``ring_12_robots``
+    row), any other name ``get_world``'s."""
+    from rl_collision_avoidance_torch.worlds import circle, get_world
+
+    return circle(n_robots=12) if world == "circle_12" else get_world(world)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
@@ -485,9 +520,8 @@ def check_lidar(device, world: str, arenas: int, discs: bool = True):
     from rl_collision_avoidance_torch.engine.celltable import lookup_cells
     from rl_collision_avoidance_torch.engine.env import Env
     from rl_collision_avoidance_torch.ops import lidar_cuda
-    from rl_collision_avoidance_torch.worlds import get_world
 
-    spec = get_world(world)
+    spec = spec_of(world)
     env = Env(spec, device=device, seed=SEED)
     t = env.lidar_table
     pose = test_poses(env, arenas)
@@ -576,37 +610,49 @@ def check_features(got, want, precision: str, what: str) -> int:
 
 
 @phase("trunk kernel vs plain")
-def check_trunk(device, world: str, batch: int, precision: str = "float32"):
+def check_trunk(device, world: str, batch: int, precision: str = "float32",
+                f32_scans: bool = False):
     """The forward kernel against its plain version on the world's scans at
-    ``batch``; in bf16 mode on bf16 scans, as ``--obs-bf16`` stores them."""
+    ``batch``; in bf16 mode on bf16 scans, as ``--obs-bf16`` stores them,
+    and with ``f32_scans`` also on float32 scans, as ``--bf16`` alone gives
+    them to the bf16 kernels (held, not timed)."""
     import torch
     import torch.nn.functional as F
 
     from rl_collision_avoidance_torch.engine.env import Env
     from rl_collision_avoidance_torch.models import load_policy
     from rl_collision_avoidance_torch.ops import trunk_cuda
-    from rl_collision_avoidance_torch.worlds import get_world
 
-    spec = get_world(world)
+    spec = spec_of(world)
     dtype = trunk_cuda.PRECISIONS[precision]
     policy = load_policy(WORLD_PARAMS[world], device=device)
-    env = Env(spec, device=device, seed=SEED + 1, obs_dtype=dtype)
-    _, obs = env.reset(-(-batch // spec.n_robots))
-    scans = obs.scans.reshape(-1, spec.laser_frames,
-                              spec.n_beams)[:batch].contiguous()
     act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
-    with torch.no_grad():
-        got = trunk_cuda.twin_trunks(scans, act, crt, precision)
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt, precision)
-    err = float((got.float() - want.float()).abs().max())
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    flips = check_features(got, want, precision, f"trunk kernel ({precision})")
+
+    def hold(obs_dtype):
+        env = Env(spec, device=device, seed=SEED + 1, obs_dtype=obs_dtype)
+        _, obs = env.reset(-(-batch // spec.n_robots))
+        scans = obs.scans.reshape(-1, spec.laser_frames,
+                                  spec.n_beams)[:batch].contiguous()
+        with torch.no_grad():
+            got = trunk_cuda.twin_trunks(scans, act, crt, precision)
+            want = trunk_cuda.twin_trunks_plain(scans, act, crt, precision)
+        err = float((got.float() - want.float()).abs().max())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        flips = check_features(got, want, precision,
+                               f"trunk kernel ({precision}, {scans.dtype} "
+                               f"scans)")
+        print(f"trunk: {world} scans ({scans.dtype}), {precision}: max "
+              f"|kernel - plain| = {err:.3g} on B = {scans.shape[0]} "
+              f"({trunk_cuda.plan_for(scans, precision)}), features up to "
+              f"{float(want.float().abs().max()):.3g}; bf16 rounding flips "
+              f"{flips} of {got.numel()}", flush=True)
+        return scans, got, err
+
+    scans, got, err = hold(dtype)
+    if f32_scans:
+        hold(torch.float32)
     b, frames, beams = scans.shape
-    print(f"trunk: {world} scans ({scans.dtype}), {precision}: max |kernel - "
-          f"plain| = {err:.3g} on B = {b} ({trunk_cuda.plan_for(scans, precision)}), "
-          f"features up to {float(want.float().abs().max()):.3g}; bf16 "
-          f"rounding flips {flips} of {got.numel()}", flush=True)
 
     per_sample, _ = trunk_ops(frames, beams)
     ops = 2 * b * per_sample              # two trunks; FMA = 2 ops
@@ -837,17 +883,21 @@ def compare_plain_step(env, policy, state, obs):
 def trunk_grads_limits(scans, act, crt, g, precision: str = "float32"):
     """For each trunk, two tuples of six float64 limits for the weight
     gradients' float32 rounding: the sum of the absolute values of each
-    gradient's terms, and what the fc1 ReLUs that float32 may turn either way
+    gradient's terms, and what the ReLUs that float32 may turn either way
     contribute.
 
     The first is the backward on absolute values: |g|, |W|, and in place of
     each activation the sum of the absolute values of its forward terms,
     which bounds the activation's own rounding as well; a ReLU whose
-    pre-activation lies within BWD_TOL of that sum counts as open.  An fc1
-    ReLU that near zero may flip, and then moves its whole term (one of the
-    batch's 32,768); a conv ReLU flip moves one term of millions.  In bf16
-    mode the forward rounds its operands as the kernels do, so that the fc1
-    pre-activations are the bf16 function's."""
+    pre-activation lies within BWD_TOL of that sum counts as open.  Such a
+    ReLU near zero may flip, and then moves its whole term: at fc1 every
+    gradient's term of that sample (one of the batch's 32,768), at conv2
+    the terms of dW2, db2, dW1 and db1 through that unit, at conv1 those of
+    dW1 and db1; the second tuple is the absolute-value backward through the
+    near ReLUs of each layer alone.  In bf16 mode the forward rounds its
+    operands as the kernels do, so that the pre-activations are the bf16
+    function's."""
+    import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv1d_input, conv1d_weight
 
@@ -861,32 +911,46 @@ def trunk_grads_limits(scans, act, crt, g, precision: str = "float32"):
         w1, b1, w2, b2, wf, bf = (w.double() for w in ws)
         w1, w2, wf = rnd(w1), rnd(w2), rnd(wf)
         open_ = lambda z, za: z > -BWD_TOL * za
+        near_ = lambda z, za: z.abs() <= BWD_TOL * za
         z1 = F.conv1d(x, w1, b1, stride=2, padding=1)
         z1a = F.conv1d(xa, w1.abs(), b1.abs(), stride=2, padding=1)
-        m1 = open_(z1, z1a)
+        m1, near1 = open_(z1, z1a), near_(z1, z1a)
         y1a = z1a * m1
         z2 = F.conv1d(rnd(z1.clamp(min=0)), w2, b2, stride=2, padding=1)
         z2a = F.conv1d(y1a, w2.abs(), b2.abs(), stride=2, padding=1)
-        m2 = open_(z2, z2a)
+        m2, near2 = open_(z2, z2a), near_(z2, z2a)
         flat_a = (z2a * m2).flatten(1)
         z3 = F.linear(rnd(z2.clamp(min=0).flatten(1)), wf, bf)
         z3a = F.linear(flat_a, wf.abs(), bf.abs())
         ga = g[t].double().abs()
+        near3 = near_(z3, z3a)
 
-        def back(g1):  # the weight gradients of the absolute-value trunk
-            g2 = (g1 @ wf.abs()).view_as(z2) * m2
-            g3 = conv1d_input(z1.shape, w2.abs(), g2, stride=2,
-                              padding=1) * m1
+        def grads(g1, g2, g3):  # the absolute-value trunk's weight gradients
             return (conv1d_weight(xa, w1.shape, g3, stride=2, padding=1),
                     g3.sum((0, 2)),
                     conv1d_weight(y1a, w2.shape, g2, stride=2, padding=1),
                     g2.sum((0, 2)), g1.T @ flat_a, g1.sum(0))
 
-        near = z3.abs() <= BWD_TOL * z3a
-        out.append((back(ga * open_(z3, z3a)), back(ga * near)))
-        print(f"trunk backward: trunk {t}: {int(near.sum())} of "
-              f"{near.numel()} fc1 pre-activations within {BWD_TOL} of "
-              f"their |terms| sum", flush=True)
+        to_z2 = lambda g1: (g1 @ wf.abs()).view_as(z2)
+        to_z1 = lambda g2: conv1d_input(z1.shape, w2.abs(), g2, stride=2,
+                                        padding=1)
+        g1 = ga * open_(z3, z3a)
+        g2 = to_z2(g1) * m2
+        scale = grads(g1, g2, to_z1(g2) * m1)
+        g1n = ga * near3
+        g2n = to_z2(g1n) * m2
+        fc1 = grads(g1n, g2n, to_z1(g2n) * m1)
+        g2c = to_z2(g1) * near2
+        conv2 = grads(torch.zeros_like(g1), g2c, to_z1(g2c) * m1)
+        conv1 = grads(torch.zeros_like(g1), torch.zeros_like(g2),
+                      to_z1(g2) * near1)
+        out.append((scale, tuple(a + b + c for a, b, c in
+                                 zip(fc1, conv2, conv1))))
+        print(f"trunk backward: trunk {t}: pre-activations within {BWD_TOL} "
+              f"of their |terms| sum: fc1 {int(near3.sum())} of "
+              f"{near3.numel()}, conv2 {int(near2.sum())} of "
+              f"{near2.numel()}, conv1 {int(near1.sum())} of "
+              f"{near1.numel()}", flush=True)
     return out
 
 
@@ -925,9 +989,10 @@ def check_grads(got, want, limits, precision: str, what: str,
 
 @phase("trunk backward kernel vs plain")
 def check_trunk_bwd(device, world: str, batch: int,
-                    precision: str = "float32"):
+                    precision: str = "float32", f32_scans: bool = False):
     """The backward kernel against its plain version in float64 on the
-    world's scans; in bf16 mode on bf16 scans with a bf16 cotangent."""
+    world's scans; in bf16 mode on bf16 scans with a bf16 cotangent, and
+    with ``f32_scans`` also on float32 scans (held, not timed)."""
     import torch
     import torch.nn.functional as F
 
@@ -935,55 +1000,67 @@ def check_trunk_bwd(device, world: str, batch: int,
     from rl_collision_avoidance_torch.engine.env import Env
     from rl_collision_avoidance_torch.models import load_policy
     from rl_collision_avoidance_torch.ops import trunk_cuda
-    from rl_collision_avoidance_torch.worlds import get_world
 
-    spec = get_world(world)
+    spec = spec_of(world)
     dtype = trunk_cuda.PRECISIONS[precision]
     policy = load_policy(WORLD_PARAMS[world], device=device)
-    env = Env(spec, device=device, seed=SEED + 2, obs_dtype=dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED + 2)
-    # the world's scans with three distinct frames: two acting steps after
-    # reset
-    state, obs = env.reset(-(-batch // spec.n_robots))
-    _, obs, _ = bench.run_acting(env, policy, state, obs, 2, gen)
-    scans = obs.scans.reshape(-1, spec.laser_frames,
-                              spec.n_beams)[:batch].contiguous()
-    g = torch.randn((2, batch, 256), generator=gen, device=device).to(dtype)
     act = [w.detach() for w in policy.trunk_weights("act")]
     crt = [w.detach() for w in policy.trunk_weights("crt")]
     flat = lambda pair: [*pair[0], *pair[1]]
 
-    got = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g, precision))
-    again = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g, precision))
-    plain = flat(trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g,
-                                                    precision))
-    want = flat(trunk_cuda.twin_trunks_grads_plain(
-        scans.double(), [w.double() for w in act], [w.double() for w in crt],
-        g.double(), precision))
-    if device.type == "cuda":
-        torch.cuda.synchronize()  # a fault inside the kernel surfaces here
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("two launches of the trunk backward kernel on "
-                             "the same inputs differ")
-    limits = trunk_grads_limits(scans, act, crt, g, precision)
-    flips = check_grads(got, want, limits, precision,
-                        f"trunk backward kernel ({precision})")
-    plain_flips = check_grads(plain, want, limits, precision, "", gate=False)
-    scale, near = ([*x[0], *x[1]] for x in zip(*limits))
-    worst = {who: max(float(((v.double() - w).abs() / (BWD_TOL * sc + nz)
-                             .clamp(min=1e-30)).max())
-                      for v, w, sc, nz in zip(vs, want, scale, near))
-             for who, vs in (("kernel", got), ("plain", plain))}
-    err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
-    top = max(float(w.abs().max()) for w in want)
-    print(f"trunk backward: {world} scans ({scans.dtype}), {precision}, B = "
-          f"{batch}; worst |error| / limit against the float64 plain version: "
-          f"kernel {worst['kernel']:.3g}, float32 plain version "
-          f"{worst['plain']:.3g}; elements beyond the float32 rule: kernel "
-          f"{flips}, plain {plain_flips}; max |kernel - plain| = {err:.3g} "
-          f"with gradients up to {top:.3g}; two launches bit-equal",
-          flush=True)
+    def hold(obs_dtype):
+        env = Env(spec, device=device, seed=SEED + 2, obs_dtype=obs_dtype)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 2)
+        # the world's scans with three distinct frames: two acting steps
+        # after reset
+        state, obs = env.reset(-(-batch // spec.n_robots))
+        _, obs, _ = bench.run_acting(env, policy, state, obs, 2, gen)
+        scans = obs.scans.reshape(-1, spec.laser_frames,
+                                  spec.n_beams)[:batch].contiguous()
+        g = torch.randn((2, batch, 256), generator=gen,
+                        device=device).to(dtype)
+        got = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g,
+                                                precision))
+        again = flat(trunk_cuda.twin_trunks_grads(scans, act, crt, g,
+                                                  precision))
+        plain = flat(trunk_cuda.twin_trunks_grads_plain(scans, act, crt, g,
+                                                        precision))
+        want = flat(trunk_cuda.twin_trunks_grads_plain(
+            scans.double(), [w.double() for w in act],
+            [w.double() for w in crt], g.double(), precision))
+        if device.type == "cuda":
+            torch.cuda.synchronize()  # a fault inside the kernel shows here
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("two launches of the trunk backward kernel "
+                                 "on the same inputs differ")
+        limits = trunk_grads_limits(scans, act, crt, g, precision)
+        flips = check_grads(got, want, limits, precision,
+                            f"trunk backward kernel ({precision}, "
+                            f"{scans.dtype} scans)")
+        plain_flips = check_grads(plain, want, limits, precision, "",
+                                  gate=False)
+        scale, near = ([*x[0], *x[1]] for x in zip(*limits))
+        worst = {who: max(float(((v.double() - w).abs()
+                                 / (BWD_TOL * sc + nz).clamp(min=1e-30)
+                                 ).max())
+                          for v, w, sc, nz in zip(vs, want, scale, near))
+                 for who, vs in (("kernel", got), ("plain", plain))}
+        err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
+        top = max(float(w.abs().max()) for w in want)
+        print(f"trunk backward: {world} scans ({scans.dtype}), {precision}, "
+              f"B = {batch} ({trunk_cuda.plan_for(scans, precision)}); worst "
+              f"|error| / limit against the float64 plain version: kernel "
+              f"{worst['kernel']:.3g}, float32 plain version "
+              f"{worst['plain']:.3g}; elements beyond the float32 rule: "
+              f"kernel {flips}, plain {plain_flips}; max |kernel - plain| = "
+              f"{err:.3g} with gradients up to {top:.3g}; two launches "
+              f"bit-equal", flush=True)
+        return scans, g, err
+
+    scans, g, err = hold(dtype)
+    if f32_scans:
+        hold(torch.float32)
 
     b, frames, beams = scans.shape
     _, per_sample = trunk_ops(frames, beams)
@@ -2096,6 +2173,228 @@ def run_curriculum(device, card: str) -> list:
     return paths
 
 
+def pipeline_paths(name: str, launches: dict, train_cfg, device,
+                   ring_12: bool) -> list:
+    """The (path, world, launches) of one pipeline run, its launches split
+    by batch: the fine-tune's (exactly as PIPELINE_UPDATES updates of
+    ``train_cfg`` and the reset of its arenas launch them), the selection
+    evals' at SELECT_ARENAS arenas, and the final evals' (the ring and the
+    jittered arenas in the circle and, with ``ring_12``, the 12-robot
+    ring): every eval runs the kernels in float32, whatever the training
+    precision."""
+    from rl_collision_avoidance_torch.examples import make_results
+    from rl_collision_avoidance_torch.train import Trainer
+
+    tr = Trainer(train_cfg, device=device)
+    steps = (train_cfg.horizon * tr.n_local * tr.spec.n_robots
+             // train_cfg.ppo.batch_size * train_cfg.ppo.epochs)
+    want = training_launches(tr, PIPELINE_UPDATES, steps)
+    want[("lidar_obs", tr.n_local * tr.spec.n_robots, "float32")] += 1
+    groups = {"selection eval": ("circle", {make_results.SELECT_ARENAS * 50}),
+              "eval": ("circle", {50, EVAL_ARENAS * 50})}
+    if ring_12:
+        groups["eval, 12-robot ring"] = ("circle_12", {12})
+    paths = [(f"{name}, fine-tune", train_cfg.world,
+              {k: launches.get(k, 0) for k in want})]
+    for what, (world, batches) in groups.items():
+        paths.append((f"{name}, {what}", world,
+                      {k: v for k, v in launches.items()
+                       if k[1] in batches}))
+    if device.type != "cuda":
+        return paths
+    got = {k: launches[k] for k in want if k in launches}
+    if got != want:
+        raise AssertionError(f"{name}: the fine-tune launched {got}, not "
+                             f"{want}")
+    evals = {k for _, _, l in paths[1:] for k in l}
+    if set(launches) != set(want) | evals or {
+            (n, b) for n, b, _ in evals} != {
+            (n, b) for n in ("lidar_obs", "twin_trunks")
+            for _, bs in groups.values() for b in bs} or any(
+                prec != "float32" for _, _, prec in evals):
+        raise AssertionError(f"{name}: the evals' kernels did not run at "
+                             f"their batches in float32 alone: {launches}")
+    return paths
+
+
+def pipeline_args(pd, root, device, *extra) -> list:
+    """make_results' arguments for a run from ``pd`` into ``root``: the
+    fine-tune alone, cut in depth, on ``device``."""
+    return ["--from-stage", "circle_ft", "--params-dir", str(pd), "--root",
+            str(root), "--circle-ft-updates", str(PIPELINE_UPDATES),
+            "--select-every", "1", "--eval-steps", str(PIPELINE_EVAL_STEPS),
+            "--eval-arenas", str(EVAL_ARENAS), "--no-plots", "--device",
+            str(device), *extra]
+
+
+def same_keys(got, want) -> bool:
+    """Whether two JSON objects have the same keys, level by level."""
+    if not isinstance(want, dict):
+        return True
+    return (isinstance(got, dict) and set(got) == set(want)
+            and all(same_keys(got[k], want[k]) for k in want))
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@phase("results pipeline")
+def run_pipeline(device, card: str) -> list:
+    """``make_results.main`` from the fine-tune on: PIPELINE_UPDATES
+    updates at full width with a selection eval after each, then the sweep
+    (with the ``stage2_policy`` block, from the same weights).  Checks the
+    kept params against select_score's choice over the evals it made, the
+    curve, the phase record, META.json and the sweep's keys (those of the
+    committed results/circle_eval.json), with the launches of each part."""
+    import csv
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rl_collision_avoidance_torch.examples import make_results
+    from rl_collision_avoidance_torch.train import TrainConfig
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+
+    committed = json.loads((ROOT / "results" / "circle_eval.json").read_text())
+    real, calls = make_results.run_circle_eval, []
+
+    def recording(policy, *args, **kwargs):  # the selection evals' inputs
+        ev = real(policy, *args, **kwargs)
+        if kwargs.get("n_arenas") == make_results.SELECT_ARENAS:
+            calls.append(({k: v.detach().cpu().clone() for k, v in
+                           policy.state_dict().items()}, ev))
+        return ev
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pd, root = Path(tmp) / "params", Path(tmp) / "out"
+        pd.mkdir()
+        shutil.copy(CIRCLE_PARAMS, pd / "stage2_params.npz")
+        shutil.copy(ROOT / "results" / "META.json", pd / "META.json")
+        reset_counts()
+        make_results.run_circle_eval = recording
+        t0 = time.perf_counter()
+        try:
+            meta = make_results.main(pipeline_args(pd, root, device))
+        finally:
+            make_results.run_circle_eval = real
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        kept = jax_params_to_torch(load_jax_npz(root / "circle_ft_params.npz"))
+        with open(root / "circle_ft_circle_curve.csv") as f:
+            curve = list(csv.DictReader(f))
+        sweep = json.loads((root / "circle_eval.json").read_text())
+        written = json.loads((root / "META.json").read_text())
+    record = meta["phases"][-1]
+    best, pick = -10.0, None
+    for i, (_, ev) in enumerate(calls):
+        if make_results.select_score(ev) > best:
+            best, pick = make_results.select_score(ev), i
+    for row in curve:
+        print(f"results pipeline: selection curve {json.dumps(row)}",
+              flush=True)
+    print(f"results pipeline: kept the params after update {pick + 1} of "
+          f"{len(calls)} (score {best:.4f}); phase {json.dumps(record)}; "
+          f"META.json phases {[ph['stage'] for ph in written['phases']]}, "
+          f"device {written['device']!r}", flush=True)
+    same = pick is not None and all(torch.equal(kept[k], calls[pick][0][k])
+                                    for k in kept)
+    if not (len(calls) == len(curve) == PIPELINE_UPDATES and same
+            and [float(r["circle_success_mean"]) for r in curve]
+            == [ev["success_rate_mean"] for _, ev in calls]
+            and record["circle_select_best_score"] == round(best, 4)
+            and record["circle_select_every"] == 1
+            and written == meta
+            and [ph["stage"] for ph in meta["phases"]] == [
+                "stage1", "stage2", "circle_ft"]):
+        raise AssertionError(f"results pipeline: the kept params, the curve "
+                             f"or the records are not select_score's choice "
+                             f"over the evals made: {curve}, {record}")
+    rows = {k: v for k, v in sweep.items() if isinstance(v, dict)
+            and "success_rate" in v}
+    if not (same_keys(sweep, committed) and all(
+            0.0 <= v["success_rate"] <= 1.0
+            and math.isfinite(v.get("success_rate_mean", 0.0))
+            for v in rows.values())):
+        raise AssertionError(f"results pipeline: the sweep's keys or values "
+                             f"differ from the committed file's: "
+                             f"{json.dumps(sweep)}")
+    for k, v in rows.items():
+        print(f"results pipeline: sweep {k}: card, {PIPELINE_EVAL_STEPS} "
+              f"steps {json.dumps(v)}; committed (TPU, 3,000 steps) "
+              f"{json.dumps(committed.get(k))}", flush=True)
+    print(f"results pipeline: the fine-tune ({PIPELINE_UPDATES} updates, "
+          f"{len(calls)} selection evals) {record['wall_s']} s, the sweep "
+          f"{sweep['eval_wall_s']} s, main {wall:.2f} s wall on {device} "
+          f"[{card}]; kernel launches (name, batch, precision): {launches}",
+          flush=True)
+    return pipeline_paths("results pipeline", launches,
+                          TrainConfig.circle_ft(n_arenas=FT_ARENAS), device,
+                          ring_12=True)
+
+
+@phase("results pipeline, bf16")
+def run_pipeline_bf16(device, card: str, obs_bf16: bool) -> list:
+    """``make_results.main --bf16`` (``--obs-bf16`` with ``obs_bf16``), the
+    bf16 fine-tune of ``circle_ft_bf16.py``, cut as :func:`run_pipeline`:
+    its eval blocks, params, and the launches (bf16 trunks in training,
+    float32 in every eval)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rl_collision_avoidance_torch.examples import make_results
+    from rl_collision_avoidance_torch.train import TrainConfig
+
+    name = "circle_ft_bf16" + ("" if obs_bf16 else "_f32obs")
+    with tempfile.TemporaryDirectory() as tmp:
+        pd, root = Path(tmp) / "params", Path(tmp) / "out"
+        pd.mkdir()
+        shutil.copy(CIRCLE_PARAMS, pd / "stage2_params.npz")
+        reset_counts()
+        t0 = time.perf_counter()
+        out = make_results.main(pipeline_args(
+            pd, root, device, "--bf16", *(["--obs-bf16"] if obs_bf16 else [])))
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with np.load(root / f"{name}_params.npz") as z:
+            finite = all(bool(np.isfinite(z[k]).all()) for k in z.files)
+        written = json.loads((root / f"{name}_eval.json").read_text())
+        files = sorted(p.name for p in root.iterdir() if p.is_file())
+    blocks = {k: out[k] for k in ("deterministic", "jitter_0.3m")}
+    for k, v in blocks.items():
+        print(f"results pipeline ({name}): {k}: {json.dumps(v)}", flush=True)
+    print(f"results pipeline ({name}): phase {json.dumps(out['phase'])}; "
+          f"files {files}; main {wall:.2f} s wall [{card}]; kernel launches "
+          f"(name, batch, precision): {launches}", flush=True)
+    if not (finite and written == {k: v for k, v in out.items()
+                                   if k != "phase"}
+            and blocks["jitter_0.3m"]["n_arenas"] == EVAL_ARENAS
+            and all(math.isfinite(b["success_rate"])
+                    for b in blocks.values())
+            and files == sorted(f"{name}_{f}" for f in (
+                "circle_curve.csv", "eval.json", "metrics.csv",
+                "params.npz"))):
+        raise AssertionError(f"results pipeline ({name}): non-finite params, "
+                             f"a malformed eval or missing files: {files}")
+    cfg = TrainConfig.circle_ft(
+        n_arenas=FT_ARENAS, policy_dtype=torch.bfloat16,
+        obs_store_dtype=torch.bfloat16 if obs_bf16 else None)
+    return pipeline_paths(f"results pipeline, {name}", launches, cfg, device,
+                          ring_12=False)
+
+
 @phase("mlp policy")
 def check_mlp(device, card: str):
     """MLPPolicy's forward and the gradients of a mean loss on the card
@@ -2157,11 +2456,12 @@ def main() -> int:
     build_kernels()
     check_sass()
     check_world_compiler(device, label)
+    from rl_collision_avoidance_torch.examples.make_results import (
+        SELECT_ARENAS)
     from rl_collision_avoidance_torch.train import TrainConfig
-    from rl_collision_avoidance_torch.worlds import get_world
 
     # each kernel at every world and batch the paths give it
-    n = {w: get_world(w).n_robots for w in WORLD_PARAMS}
+    n = {w: spec_of(w).n_robots for w in WORLD_PARAMS}
     s2 = TrainConfig.stage2(n_arenas=S2_ARENAS, seed=SEED)
     ft = TrainConfig.circle_ft(n_arenas=FT_ARENAS, seed=SEED)
     mp_arenas, mp_batch = TRAIN_ARENAS // MP_RANKS, BWD_BATCH // MP_RANKS
@@ -2204,7 +2504,23 @@ def main() -> int:
                 for precision in ("float32", "bf16")
                 for f, b in ((check_trunk, mp_arenas * n["stage1"]),
                              (check_trunk, mp_batch),
-                             (check_trunk_bwd, mp_batch)))]
+                             (check_trunk_bwd, mp_batch))),
+              # the results pipeline: its selection eval and 12-robot ring,
+              # the bf16 fine-tune on bf16 and on float32 scans; stage 2 in
+              # bf16
+              check_lidar(device, "circle", SELECT_ARENAS),
+              check_trunk(device, "circle", SELECT_ARENAS * n["circle"]),
+              check_lidar(device, "circle_12", 1),
+              check_trunk(device, "circle_12", n["circle_12"]),
+              check_trunk(device, "circle_train",
+                          FT_ARENAS * n["circle_train"], "bf16", True),
+              check_trunk(device, "circle_train", ft.ppo.batch_size, "bf16",
+                          True),
+              check_trunk_bwd(device, "circle_train", ft.ppo.batch_size,
+                              "bf16", True),
+              check_trunk(device, "stage2", S2_ARENAS * n["stage2"], "bf16"),
+              check_trunk(device, "stage2", s2.ppo.batch_size, "bf16"),
+              check_trunk_bwd(device, "stage2", s2.ppo.batch_size, "bf16")]
     pass_times(device)
     records = {(r["name"], r["world"], r["batch"], r["precision"]): r
                for r in checks}
@@ -2249,6 +2565,16 @@ def main() -> int:
     paths.append(("circle fine-tune", "circle_train", phase(
         "circle fine-tune")(run_training)(device, label, ft, CIRCLE_PARAMS, 1,
                                           None, f64=True)[0]))
+    s2_bf16 = TrainConfig.stage2(n_arenas=S2_ARENAS, seed=SEED,
+                                 policy_dtype=torch.bfloat16,
+                                 obs_store_dtype=torch.bfloat16)
+    paths.append(("stage-2 training, bf16", "stage2", phase(
+        "stage-2 bf16 training")(run_training)(device, label, s2_bf16, PARAMS,
+                                               S2_BF16_UPDATES,
+                                               S2_MIN_GOAL)[0]))
+    paths += run_pipeline(device, label)
+    paths += run_pipeline_bf16(device, label, obs_bf16=True)
+    paths += run_pipeline_bf16(device, label, obs_bf16=False)
     # the box footprint: stage1_rect training, then one acting step of its
     # state against the plain path, and the rect circle eval
     s1_rect = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED,

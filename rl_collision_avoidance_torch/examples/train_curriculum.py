@@ -42,8 +42,30 @@ from ..utils.params import (jax_params_to_torch, load_jax_npz,
 EVAL_NOISE = 1.0
 
 
-def _where(device) -> str:
+def where(device) -> str:
+    """The card's name and power limit, or the device's name off the
+    card."""
     return card_label() if device.type == "cuda" else str(device)
+
+
+def start_stage(stage: str, n_arenas: int, warm_start: str | None = None,
+                device=None, **cfg_kw):
+    """A Trainer of the preset ``stage`` ("stage1", "stage2" or "circle_ft")
+    over ``n_arenas`` arenas (``cfg_kw`` passed on to the preset) and its
+    initial state, from random init or the params npz ``warm_start``."""
+    tr = Trainer(PRESETS[stage](n_arenas=n_arenas, **cfg_kw), device=device)
+    state = tr.init_state()
+    if warm_start is not None:
+        state.policy.load_state_dict(jax_params_to_torch(
+            load_jax_npz(warm_start)))
+    return tr, state
+
+
+def best_params(ckpt: CheckpointManager, state) -> dict:
+    """The policy state dict of ``ckpt``'s best checkpoint, or ``state``'s
+    when no checkpoint was due."""
+    return (ckpt.restore_best("cpu")["policy"]
+            if ckpt.latest_step() is not None else state.policy.state_dict())
 
 
 def train_stage(stage: str, updates: int, n_arenas: int, root: str,
@@ -53,16 +75,12 @@ def train_stage(stage: str, updates: int, n_arenas: int, root: str,
     updates of ``n_arenas`` arenas from random init or the params npz
     ``warm_start``; returns the path of the best checkpoint's params npz
     (the last update's when no checkpoint was due)."""
-    tr = Trainer(PRESETS[stage](n_arenas=n_arenas), device=device)
     ckpt_dir = os.path.join(root, "checkpoints", stage)
     if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
         # its best checkpoint would compete with this run's
         raise FileExistsError(f"{ckpt_dir} holds an earlier run's "
                               f"checkpoints; give another output root")
-    state = tr.init_state()
-    if warm_start is not None:
-        state.policy.load_state_dict(jax_params_to_torch(
-            load_jax_npz(warm_start)))
+    tr, state = start_stage(stage, n_arenas, warm_start, device)
     logger = MetricLogger(os.path.join(root, "log", stage))
     ckpt = CheckpointManager(ckpt_dir)
     t0 = time.perf_counter()
@@ -70,12 +88,10 @@ def train_stage(stage: str, updates: int, n_arenas: int, root: str,
                      checkpoint_manager=ckpt,
                      checkpoint_every=checkpoint_every)
     wall = time.perf_counter() - t0
-    best = (ckpt.restore_best("cpu")["policy"]
-            if ckpt.latest_step() is not None else state.policy.state_dict())
     out = os.path.join(root, "checkpoints", f"{stage}_params.npz")
-    save_params_npz(out, torch_to_jax_params(best))
+    save_params_npz(out, torch_to_jax_params(best_params(ckpt, state)))
     print(f"{stage}: {updates} updates of {n_arenas} arenas in {wall:.2f} s "
-          f"on {_where(tr.device)}; wrote {out}", flush=True)
+          f"on {where(tr.device)}; wrote {out}", flush=True)
     return out
 
 
@@ -102,7 +118,7 @@ def curriculum(updates=(1200, 800), n_arenas=(32, 16, 16),
             pose_noise=EVAL_NOISE)}
     print(f"eval: the ring and {n_arenas[2]} arenas at {EVAL_NOISE} m, up to "
           f"{max_steps} steps, in {time.perf_counter() - t0:.2f} s on "
-          f"{_where(device)}", flush=True)
+          f"{where(device)}", flush=True)
     print(json.dumps(metrics), flush=True)
     return {"stage1_params": s1, "stage2_params": s2, "eval": metrics}
 

@@ -553,13 +553,15 @@ def test_bf16_training_update_on_the_card(cuda):
 # The bf16 mode on the tensor cores (csrc/trunk_mma.cuh, trunk_conv_mma.cuh,
 # conv_bwd_mma_kernel): ragged batches against the 128-row tiles, beam counts
 # whose conv2 channels split or share the 128-column N tiles (64: L2 = 16;
-# 720: L2 = 180), and conv1's one or two k16 steps (1 and 3 frames: 5 and 15
-# taps; 6 frames: 30)
+# 720: L2 = 180), conv1's one or two k16 steps (1 and 3 frames: 5 and 15
+# taps; 6 frames: 30), and the bf16 fine-tune's rollout and minibatch (800:
+# fc1's K split in 9; 10,240: split in 3, 80 M tiles of db2)
 # ---------------------------------------------------------------------------
 
 #: (frames, beams, batch)
 TENSOR_CORE_SHAPES = [(3, 512, 33), (3, 512, 768), (3, 512, 1000),
-                      (3, 512, 3072), (3, 512, 32768), (1, 64, 33),
+                      (3, 512, 3072), (3, 512, 32768), (3, 512, 800),
+                      (3, 512, 10240), (1, 64, 33),
                       (6, 64, 1000), (1, 720, 768), (6, 720, 1000),
                       (3, 720, 3072), (6, 512, 32768)]
 
@@ -635,6 +637,50 @@ def test_trunk_float32_mode_unmoved_by_bf16_launches(cuda):
     trunk_cuda.twin_trunks_grads(scans, act, crt, g.bfloat16(), "bf16")
     after = f32()
     assert all(torch.equal(x, y) for x, y in zip(before, after))
+
+
+def test_results_pipeline_selection_on_the_card(cuda, tmp_path,
+                                                monkeypatch):
+    """examples/make_results.py's fine-tune with circle selection on the
+    card at a tiny depth (one arena, horizon 8, two chunks of one update,
+    20-step selection evals): the kept params are those of the chunk that
+    select_score ranks first (the earlier on a tie), and the files and the
+    phase record are written."""
+    import csv
+
+    from rl_collision_avoidance_torch.examples import make_results
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+
+    params = make_results.RESULTS / "circle_ft_params.npz"
+    ppo = TrainConfig.circle_ft().ppo._replace(batch_size=80)
+    real, seen = make_results.run_circle_eval, []
+
+    def recording(policy, **kw):
+        seen.append({k: v.detach().cpu().clone()
+                     for k, v in policy.state_dict().items()})
+        return real(policy, **kw)
+
+    monkeypatch.setattr(make_results, "run_circle_eval", recording)
+    before = trunk_cuda.bwd_launches
+    record = make_results.train("circle_ft", 2, 1, str(tmp_path),
+                                warm_start=str(params), circle_select_every=1,
+                                device=cuda, select_steps=20, horizon=8,
+                                ppo=ppo)
+    assert trunk_cuda.bwd_launches - before == 2 * 5 * 4
+    with open(tmp_path / "circle_ft_circle_curve.csv") as f:
+        curve = [{k: float(v) for k, v in r.items()}
+                 for r in csv.DictReader(f)]
+    assert [r["update"] for r in curve] == [1.0, 2.0]
+    scores = [make_results.select_score(
+        {"success_rate_mean": r["circle_success_mean"],
+         "collisions_mean": r["collisions_mean"]}) for r in curve]
+    assert record["circle_select_best_score"] == round(max(scores), 4)
+    kept = jax_params_to_torch(load_jax_npz(tmp_path / "circle_ft_params.npz"))
+    first_best = seen[scores.index(max(scores))]
+    assert all(torch.equal(kept[k], v) for k, v in first_best.items())
+    assert all(torch.isfinite(v).all() for v in kept.values())
+    assert (tmp_path / "circle_ft_metrics.csv").is_file()
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from rl_collision_avoidance_torch import bench, cli
 from rl_collision_avoidance_torch.algo import gae, ppo
 from rl_collision_avoidance_torch.engine.env import Env
 from rl_collision_avoidance_torch.eval import run_circle_eval
+from rl_collision_avoidance_torch.examples import make_results
 from rl_collision_avoidance_torch.examples import train_curriculum
 from rl_collision_avoidance_torch.models import MLPPolicy, load_policy
 from rl_collision_avoidance_torch.ops import build, lidar_cuda, trunk_cuda
@@ -64,6 +65,8 @@ s1, o1 = env.reset1()
 env.step1(s1, torch.zeros(24, 2))
 MLPPolicy(1540)(torch.zeros(3, 1540))
 RunningMeanStd.create((2,), device="cpu").update(torch.ones(4, 2))
+assert make_results.select_score({"success_rate_mean": 1.0,
+                                  "collisions_mean": 0.0}) == 1.0
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r}))
 """
@@ -78,9 +81,9 @@ def test_port_imports_nothing_of_jax():
     """Importing the port and chip_smoke.py, and running the stage-1 acting
     slice, a training update, a stage-2 env step, two circle-eval steps, a
     bf16 training update (bf16 policy and scans), the world compiler on
-    both bitmaps, reset1/step1, an MLPPolicy forward and a RunningMeanStd
-    update on the CPU, loads none of JAX, flax, PIL, matplotlib or the JAX
-    package."""
+    both bitmaps, reset1/step1, an MLPPolicy forward, a RunningMeanStd
+    update and the results pipeline's selection score on the CPU, loads
+    none of JAX, flax, PIL, matplotlib or the JAX package."""
     code = _SLICE.replace("{FORBIDDEN!r}", repr(set(FORBIDDEN)))
     proc = _run(["-c", code], env=NO_CARD)
     assert proc.returncode == 0, proc.stderr
