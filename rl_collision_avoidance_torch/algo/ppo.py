@@ -16,11 +16,11 @@ import warnings
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..models import distributions
 from ..parallel.dist import (all_gather_flat, all_reduce_sum, is_initialized,
                              rank, world_size)
+from ..utils.profiling import span
 
 
 def _warn_dropped(m: int, used: int, batch_size: int):
@@ -171,15 +171,15 @@ def ppo_update(policy, optimizer, batch: Batch, cfg: PPOConfig,
     aux = []
     for epoch in range(cfg.epochs):
         for idx, wsum in zip(idxs[epoch], wsums[epoch]):
-            with record_function("ppo_forward"):
+            with span("ppo_forward"):
                 mb = Batch(*(x[idx] for x in batch))
                 loss, parts = ppo_loss(policy, mb, cfg, wsum, w)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             if is_initialized():
-                with record_function("grad_all_reduce"):
+                with span("grad_all_reduce"):
                     all_reduce_grads(params)
-            with record_function("adam"):
+            with span("adam"):
                 optimizer.step()
                 if cfg.logstd_min is not None:
                     _clamp_logstd(policy, cfg.logstd_min)

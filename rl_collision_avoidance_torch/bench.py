@@ -175,7 +175,8 @@ def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
     window_ms = start.elapsed_time(end)
     kernels, launches = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):     # a span, not an op
             kernels[e.name] = (kernels.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
             launches += 1
@@ -229,9 +230,11 @@ def measure_training(arenas: int = 32, repeats: int = 3,
             "card": card_label()}
 
 
-#: Phases of an update, as marked by record_function in train/trainer.py,
-#: algo/ppo.py and ops/trunk_cuda.py (TwinTrunks.backward).  The rest of the
-#: backward runs on the autograd engine's threads, outside every range.
+#: Phases of an update, as marked by ``utils/profiling.span`` in
+#: train/trainer.py, algo/ppo.py and ops/trunk_cuda.py (TwinTrunks.backward);
+#: the acting step's spans inside ``rollout`` count as the rollout.  The rest
+#: of the backward runs on the autograd engine's threads, outside every
+#: range.
 TRAIN_PHASES = ("rollout", "gae", "ppo_forward", "twin_trunks_grads", "adam")
 
 
@@ -265,7 +268,7 @@ def profile_training(arenas: int = 32, world: str = "stage1",
     spans = sorted(((e.time_range.start, e.time_range.end, e.name)
                     for e in device if e.name in TRAIN_PHASES),
                    key=lambda s: s[1] - s[0])
-    ops = [e for e in device if e.name not in TRAIN_PHASES]
+    ops = [e for e in device if not e.is_user_annotation]
     phases = dict.fromkeys((*TRAIN_PHASES, "autograd_other"), 0.0)
     kernels = {}
     for e in ops:

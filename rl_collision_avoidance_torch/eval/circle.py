@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..engine.env import RESULT_CRASH, RESULT_GOAL, Env
+from ..utils.profiling import span
 from ..worlds import circle as circle_world
 
 #: Steps between the loop's checks whether every robot has finished.
@@ -59,18 +60,24 @@ def run_episodes(policy, env: Env, n_arenas: int, max_steps: int,
     flat = lambda x: x.reshape(a * n, *x.shape[2:])
     with torch.no_grad():
         for i in range(max_steps):
-            _, mean, _ = policy(flat(obs.scans), flat(obs.goal),
-                                flat(obs.speed))
-            action = torch.stack([mean[:, 0].clamp(0.0, 1.0),
-                                  mean[:, 1].clamp(-1.0, 1.0)],
-                                 dim=-1).reshape(a, n, 2)
-            state, obs, _, _, info = env.step(state, action)
-            newly = (info.result != 0) & (first_result == 0)
-            first_result = torch.where(newly, info.result.to(torch.int32),
-                                       first_result)
-            done_step = torch.where(newly, i + 1, done_step)
-            if (i + 1) % CHECK_EVERY == 0 and bool((first_result != 0).all()):
-                break
+            with span("act_step"):
+                with span("act_policy"):
+                    _, mean, _ = policy(flat(obs.scans), flat(obs.goal),
+                                        flat(obs.speed))
+                action = torch.stack([mean[:, 0].clamp(0.0, 1.0),
+                                      mean[:, 1].clamp(-1.0, 1.0)],
+                                     dim=-1).reshape(a, n, 2)
+                state, obs, _, _, info = env.step(state, action)
+                newly = (info.result != 0) & (first_result == 0)
+                first_result = torch.where(newly,
+                                           info.result.to(torch.int32),
+                                           first_result)
+                done_step = torch.where(newly, i + 1, done_step)
+            if (i + 1) % CHECK_EVERY == 0:
+                with span("eval_check"):
+                    finished = bool((first_result != 0).all())
+                if finished:
+                    break
     return done_step, first_result, start_dist
 
 

@@ -35,8 +35,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from ..utils.profiling import span
 from . import build
 
 #: Forward-kernel launches since the count was last set to 0.
@@ -483,7 +483,7 @@ class TwinTrunks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         scans, *weights = ctx.saved_tensors
-        with record_function("twin_trunks_grads"):
+        with span("twin_trunks_grads"):
             act, crt = twin_trunks_grads(scans, weights[:6], weights[6:],
                                          g.contiguous(), ctx.precision)
         return (None, *act, *crt) + ((None,) if ctx.named else ())

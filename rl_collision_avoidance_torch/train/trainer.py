@@ -12,8 +12,11 @@ rollout as in the JAX package: ``done`` cuts GAE there, they count in the
 advantage normalization, and they train with weight 0.  On the CUDA card
 the policy runs through the trunk forward kernel in the rollout and through
 the forward and backward kernels in the update; the env step runs the lidar
-kernel.  Phases are marked with ``torch.profiler.record_function`` so that
-``bench --train --profile`` can split the device time.
+kernel.  Phases are marked with ``utils/profiling.span`` so that
+``bench --train --profile`` and the benchmark can split the device time: each
+acting step is ``act_step``, its policy forward ``act_policy``; the first
+observation and the bootstrap stay directly in ``rollout``, so that span's
+device-side extent still runs from the first step to the bootstrap.
 
 Mixed precision, as the JAX trainer's: ``policy_dtype=torch.bfloat16``
 runs the policy in bf16 (``CNNPolicy(dtype=...)``: the trunk kernels' bf16
@@ -36,7 +39,6 @@ import contextlib
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..algo import gae
 from ..algo.ppo import (Batch, PPOConfig, normalize_shard_advantages,
@@ -45,7 +47,7 @@ from ..engine.env import Env, EnvState
 from ..models import CNNPolicy, distributions
 from ..parallel import dist
 from ..utils.device import resolve_device
-from ..utils.profiling import StepTimer, trace
+from ..utils.profiling import StepTimer, span, trace
 from ..worlds import get_world
 
 
@@ -250,25 +252,29 @@ class Trainer:
                 "ep_return": buf()}
         with torch.no_grad():
             for t in range(cfg.horizon):
-                value, mean, logstd = policy(flat(obs.scans), flat(obs.goal),
-                                             flat(obs.speed))
-                raw = distributions.sample(
-                    mean, logstd, None if noise is None else noise[t],
-                    state.generator)
-                logprob = distributions.log_normal_density(raw, mean, logstd)
-                for k in ("scans", "goal", "speed"):
-                    traj[k][t] = getattr(obs, k)
-                traj["action"][t] = raw.reshape(a, n, 2)
-                traj["logprob"][t] = logprob.reshape(a, n)
-                traj["value"][t] = value.reshape(a, n)
-                # the env clips the raw sample to the action bounds
-                env_state, obs, reward, done, info = env.step(
-                    env_state, raw.reshape(a, n, 2),
-                    *(resets[t] if resets is not None else (None, None)))
-                traj["reward"][t] = reward
-                traj["done"][t] = done
-                for k in ("valid", "reached", "crashed", "ep_return"):
-                    traj[k][t] = getattr(info, k)
+                with span("act_step"):
+                    with span("act_policy"):
+                        value, mean, logstd = policy(flat(obs.scans),
+                                                     flat(obs.goal),
+                                                     flat(obs.speed))
+                    raw = distributions.sample(
+                        mean, logstd, None if noise is None else noise[t],
+                        state.generator)
+                    logprob = distributions.log_normal_density(raw, mean,
+                                                               logstd)
+                    for k in ("scans", "goal", "speed"):
+                        traj[k][t] = getattr(obs, k)
+                    traj["action"][t] = raw.reshape(a, n, 2)
+                    traj["logprob"][t] = logprob.reshape(a, n)
+                    traj["value"][t] = value.reshape(a, n)
+                    # the env clips the raw sample to the action bounds
+                    env_state, obs, reward, done, info = env.step(
+                        env_state, raw.reshape(a, n, 2),
+                        *(resets[t] if resets is not None else (None, None)))
+                    traj["reward"][t] = reward
+                    traj["done"][t] = done
+                    for k in ("valid", "reached", "crashed", "ep_return"):
+                        traj[k][t] = getattr(info, k)
             # Bootstrap value at the horizon (ppo_stage1.py:94-97).
             last_value = policy(flat(obs.scans), flat(obs.goal),
                                 flat(obs.speed))[0][:, 0]
@@ -306,9 +312,9 @@ class Trainer:
         in a process group ``noise``, ``resets`` and ``perms`` are the
         rank's own."""
         cfg = self.cfg
-        with record_function("rollout"):
+        with span("rollout"):
             env_state, traj, last_value = self._rollout(state, noise, resets)
-        with record_function("gae"):
+        with span("gae"):
             batch = self._batch(traj, last_value)
         losses = ppo_update(state.policy, state.optimizer, batch, cfg.ppo,
                             perms, state.generator)

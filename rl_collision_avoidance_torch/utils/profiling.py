@@ -1,11 +1,15 @@
 """Profiling and debugging aids: the port's counterparts of
 ``rl_collision_avoidance_tpu/utils/profiling.py`` (``trace``,
-``nan_debug``, ``StepTimer``).
+``nan_debug``, ``StepTimer``), and ``span``, the one way the port marks
+its phases in a trace.
 
 Usage::
 
     with trace("/tmp/rca-trace"):      # Chrome / TensorBoard trace, a rank
         trainer.train(updates=3)
+
+    with span("env_step"):             # a range in any running profiler's
+        ...                            # trace; a flag read otherwise
 
     with nan_debug():                  # raise at the first NaN a backward
         trainer.train(updates=1)       # produces
@@ -17,9 +21,23 @@ import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.autograd import profiler as autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..parallel.dist import rank
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs, and
+    a shared no-op context otherwise: an unwatched range costs a flag read,
+    not the host time of a range (about that of two small ops).  The flag is the Python profiler's
+    module state, which every thread sees (autograd's device thread runs
+    ``twin_trunks_grads``; the C-level check reads False there)."""
+    if autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
