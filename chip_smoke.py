@@ -70,6 +70,12 @@ path ran through the kernels, at those batch sizes, and stayed right:
   trunk kernels held at the fine-tune's batches, 800 and 10,240, on bf16
   and on float32 scans.
 
+The env-step kernels (``ops/env_cuda.py``, every disc world's step on the
+card) are held to the plain chain (``use_kernels=False``) over chained
+steps at each world and batch of these paths: every field of the step
+equal, bit for bit; each path's launches of them are counted like the
+other kernels'.
+
 Right after the build it reads the library's SASS (``cuobjdump -sass``):
 every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
 instructions (HMMA/HGMMA) and no float32 kernel may.  Each kernel's time is
@@ -116,6 +122,7 @@ SLICE_STEPS = 256     # timed acting steps (after WARMUP_STEPS)
 WARMUP_STEPS = 8
 SEED = 0
 LIDAR_ATOL = 1e-5     # normalized obs, as tests/test_pallas.py holds the TPU kernel
+ENV_STEPS = 40        # chained steps of the env-step kernels held to the plain chain
 # The trunk kernel sums its 4096-long fc1 dot products (and the 96- and
 # 15-long conv sums) in another order than cuBLAS/cuDNN; the rounding error
 # of such a sum is ~sqrt(n) * 2^-24 * sum|terms| ~ 1e-5 at these weights, so
@@ -573,6 +580,106 @@ def check_lidar(device, world: str, arenas: int, discs: bool = True):
     return record
 
 
+@phase("env-step kernels vs plain")
+def check_env(device, world: str, arenas: int) -> list:
+    """The env-step kernels (``ops/env_cuda.py``) against the plain chain
+    (``use_kernels=False``) over ENV_STEPS chained steps from the world's
+    test poses, each path on its own states, with actions out of their
+    bounds and the same reset draws: every bool, int and float field of
+    the step equal, the scans within LIDAR_ATOL.  Returns the records of
+    ``env_physics`` and, where the world resets, ``env_reset``: each
+    kernel's device ms and its wrapper's host us, and as ``plain_ms`` the
+    plain chain's device ms a step without the lidar.  Prints both paths'
+    device ms and host us a step without the lidar."""
+    import dataclasses
+
+    import torch
+
+    from rl_collision_avoidance_torch.engine.env import Env
+    from rl_collision_avoidance_torch.ops import env_cuda
+
+    spec = spec_of(world)
+    env = Env(spec, device=device, seed=SEED)
+    plain = Env(spec, device=device, seed=SEED, use_kernels=False)
+    n, robots = spec.n_robots, arenas * spec.n_robots
+    pose = test_poses(env, arenas)
+    goal = env.sample_pose_goal(arenas)[1]
+    state, pstate = (e.reset(arenas, pose, goal)[0] for e in (env, plain))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    fields = lambda out: {
+        **vars(out[0]), "obs.goal": out[1].goal, "reward": out[2],
+        "done": out[3], **{f"info.{k}": v for k, v in vars(out[4]).items()}}
+    differ, err, resets = 0, 0.0, 0
+    for _ in range(ENV_STEPS):
+        act = torch.rand((arenas, n, 2), generator=gen, device=device) * 4 \
+            - 1.5
+        draw = env.sample_pose_goal(arenas, state.pose)
+        got, want = (fields(e.step(s, act, *draw))
+                     for e, s in ((env, state), (plain, pstate)))
+        for k, w in want.items():
+            if k == "scan_hist":
+                err = max(err, float((got[k].float() - w.float()).abs().max()))
+            else:
+                differ += int((got[k] != w).sum())
+        state = dataclasses.replace(state, **{k: got[k] for k in vars(state)})
+        pstate = dataclasses.replace(pstate,
+                                     **{k: want[k] for k in vars(pstate)})
+        resets += int((state.step == 0).sum())
+    if device.type == "cuda":
+        torch.cuda.synchronize()  # a fault inside a kernel surfaces here
+    if differ or not err <= LIDAR_ATOL:
+        raise AssertionError(f"env step {world} {robots}: the kernel path "
+                             f"left the plain chain in {differ} elements, "
+                             f"scans by {err}")
+    fixed = env._kernels.fixed
+    base = {"route": "cuda",
+            "source": "rl_collision_avoidance_torch/ops/csrc/env_step.cu",
+            "replaces": "none: engine/env.py::Env._step_plain (the JAX "
+                        "step is plain XLA)",
+            "world": world, "batch": robots, "precision": "float32",
+            "max_abs_err": 0.0, "library_ms": None, "workspace_bytes": None,
+            "peak_bytes": None}
+    k = env.wall_table.k
+    # Bytes: the state, actions and wall-table rows read, the outputs
+    # written; operations: integration, k segment and n - 1 disc tests
+    # (~17 and ~6 a test), reward and masks ~40; the reset apply ~30 a
+    # robot.  Both bounds lie far under the launch latency.
+    records = [dict(base, name="env_physics", bound=bound(
+        robots * (41 + 16 * k + (70 if fixed else 82)),
+        robots * (12 * spec.substeps + 17 * k + 6 * (n - 1) + 40)))]
+    if not fixed:
+        records.append(dict(base, name="env_reset", bound=bound(
+            robots * 70, robots * 30)))
+    if device.type == "cuda":
+        w = env._kernels
+        draw = env.sample_pose_goal(arenas, state.pose)
+        out = env_cuda.physics(w, state, act)
+        records[0]["ms"], records[0]["host_us"] = time_ms(
+            lambda: env_cuda.physics(w, state, act), 50)
+        if not fixed:
+            records[1]["ms"], records[1]["host_us"] = time_ms(
+                lambda: env_cuda.reset_apply(w, out, *draw), 50)
+        scan = env.scan_obs(state.pose)
+        for e in (env, plain):     # the step without its lidar
+            e.scan_obs = lambda pose: scan
+        k_ms, k_us = time_ms(lambda: env.step(state, act, *draw), 50)
+        p_ms, p_us = time_ms(lambda: plain.step(pstate, act, *draw), 20)
+        for r in records:
+            r["plain_ms"] = p_ms
+        print(f"env step {world} {robots}: a step without the lidar: kernel "
+              f"path {k_ms:.4g} device ms, {k_us:.1f} host us; plain chain "
+              f"{p_ms:.4g} device ms, {p_us:.1f} host us", flush=True)
+    for r in records:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+    print(f"env step {world} {robots}: the kernel path equal to the plain "
+          f"chain in every field over {ENV_STEPS} steps ({resets} resets; "
+          f"scans within {err:.3g}); kernels "
+          f"{[(r['name'], r.get('ms'), r.get('host_us')) for r in records]}",
+          flush=True)
+    return records
+
+
 def flip_check(diff, tight, loose, what: str) -> int:
     """The bf16 rule for outputs or gradient elements: where ``diff``
     exceeds ``tight`` (the float32 rule) it must stay within ``loose`` (one
@@ -722,20 +829,38 @@ def call_memory(fn, key, what: str) -> dict:
 
 def reset_counts():
     """Every kernel's launch counts to 0."""
-    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+    from rl_collision_avoidance_torch.ops import (env_cuda, lidar_cuda,
+                                                  trunk_cuda)
 
     lidar_cuda.launches = trunk_cuda.launches = trunk_cuda.bwd_launches = 0
+    env_cuda.launches = 0
     lidar_cuda.launches_by_mode.clear()
     trunk_cuda.launches_by_mode.clear()
+    env_cuda.launches_by_mode.clear()
 
 
 def read_counts() -> dict:
     """Launches since :func:`reset_counts` by (kernel, batch, precision):
     the lidar (``lidar_obs``, or ``lidar_obs_walls`` in its walls-only
-    mode) runs in float32 in either mode."""
-    from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+    mode) and the env step (``env_physics``, and ``env_reset`` where the
+    world resets) run in float32 in every mode."""
+    from rl_collision_avoidance_torch.ops import (env_cuda, lidar_cuda,
+                                                  trunk_cuda)
 
-    return {**lidar_cuda.launches_by_mode, **trunk_cuda.launches_by_mode}
+    return {**lidar_cuda.launches_by_mode, **trunk_cuda.launches_by_mode,
+            **env_cuda.launches_by_mode}
+
+
+def env_launches(env, robots: int, steps: int) -> dict:
+    """The env-step kernels' launches of ``steps`` steps of ``env`` at
+    ``robots`` robots: none off the kernel path (the box footprint), the
+    reset apply only where the world resets."""
+    if env._kernels is None:
+        return {}
+    out = {("env_physics", robots, "float32"): steps}
+    if not env._kernels.fixed:
+        out[("env_reset", robots, "float32")] = steps
+    return out
 
 
 @phase("stage-1 acting slice")
@@ -792,7 +917,8 @@ def run_slice(device, card: str, bf16: bool = False):
     if on_card and not (launches.get(("lidar_obs", robots, "float32"))
                         and set(launches) == {
                             ("lidar_obs", robots, "float32"),
-                            ("twin_trunks", robots, precision)}):
+                            ("twin_trunks", robots, precision),
+                            *env_launches(env, robots, 1)}):
         raise AssertionError(f"a kernel of the path never ran, or ran at "
                              f"another batch: {launches}")
     ended = goal + crash + timeout
@@ -1634,7 +1760,8 @@ def training_launches(tr, updates: int, steps_per_update: int) -> dict:
     return {(lidar, robots, "float32"): n * cfg.horizon,
             ("twin_trunks", robots, precision): n * (cfg.horizon + 1),
             ("twin_trunks", mb, precision): n * steps_per_update,
-            ("twin_trunks_grads", mb, precision): n * steps_per_update}
+            ("twin_trunks_grads", mb, precision): n * steps_per_update,
+            **env_launches(tr.env, robots, n * cfg.horizon)}
 
 
 def conv_pieces(scans, act, crt, kernel: bool, precision: str = "float32"):
@@ -1924,9 +2051,10 @@ def run_circle(device, card: str, arenas: int, noise: float,
           f"batch, precision): {launches} [{card}]", flush=True)
     lidar = ("lidar_obs_walls" if rect or cull_k else "lidar_obs", robots,
              "float32")
+    env_step = set() if rect else {("env_physics", robots, "float32")}
     if device.type == "cuda" and not (
             launches.get(lidar) and set(launches) == {
-                lidar, ("twin_trunks", robots, "float32")}):
+                lidar, ("twin_trunks", robots, "float32"), *env_step}):
         raise AssertionError(f"a kernel of the eval never ran, or ran at "
                              f"another batch: {launches}")
     if not rect:
@@ -2161,9 +2289,8 @@ def run_curriculum(device, card: str) -> list:
     if device.type != "cuda":
         return paths
     robots = {50, CURRICULUM_EVAL_ARENAS * 50}
-    if {(n, b) for n, b, _ in evals} != {(n, b) for n in ("lidar_obs",
-                                                           "twin_trunks")
-                                         for b in robots}:
+    if {(n, b) for n, b, _ in evals} != {(n, b) for n in (
+            "lidar_obs", "twin_trunks", "env_physics") for b in robots}:
         raise AssertionError(f"curriculum: the eval's kernels did not run "
                              f"at its batches: {evals}")
     got = {k: launches[k] for k in expected if k in launches}
@@ -2209,7 +2336,7 @@ def pipeline_paths(name: str, launches: dict, train_cfg, device,
     evals = {k for _, _, l in paths[1:] for k in l}
     if set(launches) != set(want) | evals or {
             (n, b) for n, b, _ in evals} != {
-            (n, b) for n in ("lidar_obs", "twin_trunks")
+            (n, b) for n in ("lidar_obs", "twin_trunks", "env_physics")
             for _, bs in groups.values() for b in bs} or any(
                 prec != "float32" for _, _, prec in evals):
         raise AssertionError(f"{name}: the evals' kernels did not run at "
@@ -2520,7 +2647,15 @@ def main() -> int:
                               "bf16", True),
               check_trunk(device, "stage2", S2_ARENAS * n["stage2"], "bf16"),
               check_trunk(device, "stage2", s2.ppo.batch_size, "bf16"),
-              check_trunk_bwd(device, "stage2", s2.ppo.batch_size, "bf16")]
+              check_trunk_bwd(device, "stage2", s2.ppo.batch_size, "bf16"),
+              # the env step at every world and batch of the paths
+              *(r for world, arenas in (
+                  ("stage1", ARENAS), ("stage1", TRAIN_ARENAS),
+                  ("stage1", mp_arenas), ("stage2", S2_ARENAS),
+                  ("circle_train", FT_ARENAS), ("circle", 1),
+                  ("circle", EVAL_ARENAS), ("circle", SELECT_ARENAS),
+                  ("circle", CURRICULUM_EVAL_ARENAS), ("circle_12", 1))
+                for r in check_env(device, world, arenas))]
     pass_times(device)
     records = {(r["name"], r["world"], r["batch"], r["precision"]): r
                for r in checks}

@@ -20,6 +20,13 @@ the JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
 5. one lidar pass at the post-reset poses, pushed into the 3-frame history
    (a fresh robot's history is filled with its first frame).
 
+On the CUDA card a disc world's step runs steps 1-4 and the observation's
+body-frame goal in the hand-written kernels of ``ops/env_cuda.py`` (one
+launch, or two with the reset sampler between them; the rule is
+``env_cuda.kernel_path``); the CPU, ``use_kernels=False`` and rect worlds
+run the plain PyTorch chain, :meth:`Env._step_plain`, which the kernels
+are held to bit for bit.
+
 The lidar runs through ``ops/lidar_cuda.py::lidar_obs``: the hand-written
 kernel when the env lives on the CUDA card, its plain version on the CPU.
 With disc silhouettes it computes walls and discs in one launch.  With box
@@ -43,7 +50,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import lidar_cuda   # a module: ops/lidar_cuda.py imports this package
+# modules: ops/lidar_cuda.py imports this package
+from ..ops import env_cuda, lidar_cuda
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from ..worlds.spec import ResetMode, WorldSpec
@@ -162,6 +170,10 @@ class Env:
                                                      self.obs_beams)).long())
         self._scan = (lidar_cuda.lidar_obs if use_kernels
                       else lidar_cuda.lidar_obs_plain)
+        self._kernels = (env_cuda.world(spec, self._wall_cells,
+                                        self.wall_table)
+                         if env_cuda.kernel_path(self.device, use_kernels,
+                                                 spec.footprint) else None)
         if spec.reset_mode is not ResetMode.RANDOM_DISC:
             self._pose_table = as_tensor(spec.init_pose_table)
             self._goal_table = as_tensor(spec.goal_table)
@@ -282,115 +294,151 @@ class Env:
         True while a robot is dead.  Traced as ``env_step``, with
         ``env_physics``, ``env_reset`` and ``env_lidar`` inside it.
         """
+        if (reset_pose is None) != (reset_goal is None):
+            raise ValueError("pass both reset_pose and reset_goal, or "
+                             "neither")
         with span("env_step"):
-            spec = self.spec
-            live = ~state.dead
-            v = action[..., 0].clamp(V_MIN, V_MAX) * live
-            w = action[..., 1].clamp(W_MIN, W_MAX)
-            if spec.reset_mode is not ResetMode.FIXED_TABLES:
-                # Finished circle-eval robots keep steering with the
-                # policy's w but v := 0 (circle_test.py:64-66): they spin
-                # in place.
-                w = w * live
+            if self._kernels is not None:
+                return self._step_kernels(state, action, reset_pose,
+                                          reset_goal)
+            return self._step_plain(state, action, reset_pose, reset_goal)
 
-            with span("env_physics"):
-                cand = physics.integrate(state.pose, v, w, spec.dt,
-                                         spec.substeps)
-                t = self.wall_table
-                culled = self._wall_cells[lookup_cells(t.lo, t.cell, t.shape,
-                                                       cand[..., :2])]
-                if spec.footprint == "rect":
-                    hl, hw = spec.rect_half_len, spec.rect_half_wid
-                    stalled = (
-                        physics.rect_wall_collision(cand, culled, hl, hw)
-                        | physics.rect_robot_collision(cand, hl, hw))
-                else:
-                    stalled = (
-                        physics.wall_collision_packed(cand[..., :2], culled,
-                                                      spec.robot_radius)
-                        | physics.robot_collision(cand[..., :2],
-                                                  spec.robot_radius))
-                pose = torch.where(stalled[..., None], state.pose, cand)
+    def _step_kernels(self, state: EnvState, action: torch.Tensor,
+                      reset_pose, reset_goal):
+        """:meth:`step` through ``ops/env_cuda.py``'s kernels."""
+        kernels = self._kernels
+        with span("env_physics"):
+            out = env_cuda.physics(kernels, state, action)
+        if not kernels.fixed:
+            with span("env_reset"):
+                if reset_pose is None:
+                    reset_pose, reset_goal = self.sample_pose_goal(
+                        out.pose.shape[0], out.phys_pose)
+                env_cuda.reset_apply(kernels, out, reset_pose, reset_goal)
+        with span("env_lidar"):
+            scan = self.scan_obs(out.pose)[:, :, None, :]
+            scan_hist = torch.cat([state.scan_hist[:, :, 1:], scan], dim=2)
+            if not kernels.fixed:
+                scan_hist = torch.where(out.reset[..., None, None], scan,
+                                        scan_hist)
+        new_state = EnvState(pose=out.pose, speed=out.speed, goal=out.goal,
+                             dist=out.dist, step=out.step, dead=out.dead,
+                             scan_hist=scan_hist, ep_return=out.ep_return)
+        obs = Obs(scans=scan_hist, goal=out.obs_goal, speed=out.speed)
+        info = StepInfo(result=out.result, valid=out.valid,
+                        ep_return=out.info_return, reached=out.reached,
+                        crashed=out.crashed)
+        return new_state, obs, out.reward, out.done, info
 
-            steps = state.step + live.to(torch.int32)
-            dist_new = torch.linalg.vector_norm(state.goal - pose[..., :2],
-                                                dim=-1)
+    def _step_plain(self, state: EnvState, action: torch.Tensor,
+                    reset_pose, reset_goal):
+        """:meth:`step` as the plain PyTorch chain: the CPU's path, the
+        rect footprint's, and the reference the kernels are held to."""
+        spec = self.spec
+        live = ~state.dead
+        v = action[..., 0].clamp(V_MIN, V_MAX) * live
+        w = action[..., 1].clamp(W_MIN, W_MAX)
+        if spec.reset_mode is not ResetMode.FIXED_TABLES:
+            # Finished circle-eval robots keep steering with the
+            # policy's w but v := 0 (circle_test.py:64-66): they spin
+            # in place.
+            w = w * live
 
-            # Reward (stage_world1.py:180-211).  The spin penalty reads the
-            # realized w: a stalled robot did not turn.
-            reached = dist_new < spec.goal_size
-            crashed = stalled
-            timeout = steps > spec.timeout
-            reward_g = torch.where(reached, 15.0,
-                                   (state.dist - dist_new) * 2.5)
-            reward_c = torch.where(crashed, -15.0, 0.0)
-            w_real = w * ~stalled
-            reward_w = torch.where(w_real.abs() > spec.omega_thresh,
-                                   -0.1 * w_real.abs(), 0.0)
-            reward = (reward_g + reward_c + reward_w) * live
+        with span("env_physics"):
+            cand = physics.integrate(state.pose, v, w, spec.dt,
+                                     spec.substeps)
+            t = self.wall_table
+            culled = self._wall_cells[lookup_cells(t.lo, t.cell, t.shape,
+                                                   cand[..., :2])]
+            if spec.footprint == "rect":
+                hl, hw = spec.rect_half_len, spec.rect_half_wid
+                stalled = (
+                    physics.rect_wall_collision(cand, culled, hl, hw)
+                    | physics.rect_robot_collision(cand, hl, hw))
+            else:
+                stalled = (
+                    physics.wall_collision_packed(cand[..., :2], culled,
+                                                  spec.robot_radius)
+                    | physics.robot_collision(cand[..., :2],
+                                              spec.robot_radius))
+            pose = torch.where(stalled[..., None], state.pose, cand)
 
-            terminal = (reached | crashed | timeout) & live
-            result = torch.where(
-                timeout, RESULT_TIMEOUT,
-                torch.where(crashed, RESULT_CRASH,
-                            torch.where(reached, RESULT_GOAL, RESULT_RUNNING)))
-            result = torch.where(live, result, RESULT_RUNNING)
+        steps = state.step + live.to(torch.int32)
+        dist_new = torch.linalg.vector_norm(state.goal - pose[..., :2],
+                                            dim=-1)
 
-            dead_after = state.dead | terminal
-            if spec.reset_mode is ResetMode.RANDOM_DISC:
-                reset_mask = terminal
-                dead_next = torch.zeros_like(dead_after)
-            elif spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR:
-                # Group-synchronized episode boundaries (model/utils.py:81-87).
-                group_done = (dead_after[:, None, :]
-                              | ~self._group_member).all(dim=-1)     # (A, G)
-                reset_mask = group_done[:, self._group_id]            # (A, N)
-                dead_next = dead_after & ~reset_mask
-            else:                                   # FIXED_TABLES: never reset
-                reset_mask = None
-                dead_next = dead_after
+        # Reward (stage_world1.py:180-211).  The spin penalty reads the
+        # realized w: a stalled robot did not turn.
+        reached = dist_new < spec.goal_size
+        crashed = stalled
+        timeout = steps > spec.timeout
+        reward_g = torch.where(reached, 15.0,
+                               (state.dist - dist_new) * 2.5)
+        reward_c = torch.where(crashed, -15.0, 0.0)
+        w_real = w * ~stalled
+        reward_w = torch.where(w_real.abs() > spec.omega_thresh,
+                               -0.1 * w_real.abs(), 0.0)
+        reward = (reward_g + reward_c + reward_w) * live
 
-            if (reset_pose is None) != (reset_goal is None):
-                raise ValueError("pass both reset_pose and reset_goal, or "
-                                 "neither")
-            ep_return_now = state.ep_return + reward
-            goal, dist, step_ctr = state.goal, dist_new, steps
-            speed = torch.stack([v, w], dim=-1)
-            ep_return = ep_return_now
+        terminal = (reached | crashed | timeout) & live
+        result = torch.where(
+            timeout, RESULT_TIMEOUT,
+            torch.where(crashed, RESULT_CRASH,
+                        torch.where(reached, RESULT_GOAL, RESULT_RUNNING)))
+        result = torch.where(live, result, RESULT_RUNNING)
+
+        dead_after = state.dead | terminal
+        if spec.reset_mode is ResetMode.RANDOM_DISC:
+            reset_mask = terminal
+            dead_next = torch.zeros_like(dead_after)
+        elif spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR:
+            # Group-synchronized episode boundaries (model/utils.py:81-87).
+            group_done = (dead_after[:, None, :]
+                          | ~self._group_member).all(dim=-1)     # (A, G)
+            reset_mask = group_done[:, self._group_id]            # (A, N)
+            dead_next = dead_after & ~reset_mask
+        else:                                   # FIXED_TABLES: never reset
+            reset_mask = None
+            dead_next = dead_after
+
+        ep_return_now = state.ep_return + reward
+        goal, dist, step_ctr = state.goal, dist_new, steps
+        speed = torch.stack([v, w], dim=-1)
+        ep_return = ep_return_now
+        if reset_mask is not None:
+            with span("env_reset"):
+                if reset_pose is None:
+                    reset_pose, reset_goal = self.sample_pose_goal(
+                        pose.shape[0], pose)
+                m = reset_mask[..., None]
+                pose = torch.where(m, reset_pose, pose)
+                goal = torch.where(m, reset_goal, goal)
+                dist = torch.where(reset_mask,
+                                   self._reset_dist(pose, goal), dist)
+                step_ctr = torch.where(reset_mask, 0, step_ctr)
+                # Speed obs: the applied (v, w); fresh resets start at
+                # rest.
+                speed = torch.where(m, 0.0, speed)
+                ep_return = torch.where(reset_mask, 0.0, ep_return)
+
+        with span("env_lidar"):
+            scan = self.scan_obs(pose)[:, :, None, :]
+            scan_hist = torch.cat([state.scan_hist[:, :, 1:], scan],
+                                  dim=2)
             if reset_mask is not None:
-                with span("env_reset"):
-                    if reset_pose is None:
-                        reset_pose, reset_goal = self.sample_pose_goal(
-                            pose.shape[0], pose)
-                    m = reset_mask[..., None]
-                    pose = torch.where(m, reset_pose, pose)
-                    goal = torch.where(m, reset_goal, goal)
-                    dist = torch.where(reset_mask,
-                                       self._reset_dist(pose, goal), dist)
-                    step_ctr = torch.where(reset_mask, 0, step_ctr)
-                    # Speed obs: the applied (v, w); fresh resets start at
-                    # rest.
-                    speed = torch.where(m, 0.0, speed)
-                    ep_return = torch.where(reset_mask, 0.0, ep_return)
+                scan_hist = torch.where(reset_mask[..., None, None], scan,
+                                        scan_hist)
 
-            with span("env_lidar"):
-                scan = self.scan_obs(pose)[:, :, None, :]
-                scan_hist = torch.cat([state.scan_hist[:, :, 1:], scan],
-                                      dim=2)
-                if reset_mask is not None:
-                    scan_hist = torch.where(reset_mask[..., None, None], scan,
-                                            scan_hist)
-
-            new_state = EnvState(
-                pose=pose, speed=speed, goal=goal, dist=dist,
-                step=step_ctr.to(torch.int32), dead=dead_next,
-                scan_hist=scan_hist, ep_return=ep_return)
-            done = state.dead | terminal
-            info = StepInfo(result=result, valid=live,
-                            ep_return=torch.where(terminal, ep_return_now,
-                                                  0.0),
-                            reached=reached & live, crashed=crashed & live)
-            return new_state, self.obs(new_state), reward, done, info
+        new_state = EnvState(
+            pose=pose, speed=speed, goal=goal, dist=dist,
+            step=step_ctr.to(torch.int32), dead=dead_next,
+            scan_hist=scan_hist, ep_return=ep_return)
+        done = state.dead | terminal
+        info = StepInfo(result=result, valid=live,
+                        ep_return=torch.where(terminal, ep_return_now,
+                                              0.0),
+                        reached=reached & live, crashed=crashed & live)
+        return new_state, self.obs(new_state), reward, done, info
 
     def teleport(self, state: EnvState, pose: torch.Tensor,
                  mask: torch.Tensor | None = None) -> EnvState:

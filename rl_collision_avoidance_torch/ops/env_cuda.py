@@ -1,0 +1,210 @@
+"""The env-step kernels' wrapper and the rule that chooses them.
+
+``Env.step`` runs its plain PyTorch chain (``engine/env.py::Env._step_plain``)
+or, where :func:`kernel_path` says so, :func:`physics` and
+:func:`reset_apply`: the hand-written kernels in ``csrc/env_step.cu``, which
+do the whole step but the reset sampler and the lidar in one launch
+(``FIXED_TABLES``) or two, with the sampler between them.  There is no
+fallback between the two: a CUDA tensor that the kernels cannot take
+raises.  The box footprint's separating-axis tests are another algorithm,
+and rect worlds keep the plain chain.
+
+The kernels never write their inputs: each step's outputs are new tensors,
+views of one fresh buffer per dtype (float32, bool, int32, int64).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..worlds.spec import ResetMode
+from . import build
+
+#: Kernel launches since the count was last set to 0.
+launches = 0
+#: The same launches by (kernel, robots, "float32"): "env_physics" for the
+#: step up to the reset mask, "env_reset" for the reset apply.
+launches_by_mode: collections.Counter = collections.Counter()
+
+
+def kernel_path(device, use_kernels: bool, footprint: str) -> bool:
+    """Rule: the env steps through the kernels when ``use_kernels`` is set,
+    it lives on a CUDA device and its robots are discs."""
+    return (use_kernels and torch.device(device).type == "cuda"
+            and footprint == "disc")
+
+
+class EnvConsts(ctypes.Structure):
+    """A world's constants as ``csrc/env_step.cu`` reads them."""
+    _fields_ = [("wall", ctypes.c_void_p), ("group_id", ctypes.c_void_p),
+                ("k", ctypes.c_int), ("nx", ctypes.c_int),
+                ("ny", ctypes.c_int), ("lo_x", ctypes.c_float),
+                ("lo_y", ctypes.c_float), ("inv_cell", ctypes.c_float),
+                ("n", ctypes.c_int), ("mode", ctypes.c_int),
+                ("substeps", ctypes.c_int), ("timeout", ctypes.c_int),
+                ("dist_zero", ctypes.c_int), ("h", ctypes.c_float),
+                ("radius_sq", ctypes.c_float), ("diam_sq", ctypes.c_float),
+                ("goal_size", ctypes.c_float), ("omega", ctypes.c_float)]
+
+
+@dataclasses.dataclass
+class World:
+    """The constants of one env's world, and the device tensors they point
+    into (kept alive here)."""
+    consts: EnvConsts
+    wall: torch.Tensor
+    group_id: torch.Tensor | None
+    fixed: bool
+
+
+def world(spec, wall_cells: torch.Tensor, wall_table) -> World:
+    """The kernels' view of ``spec`` with its wall-cell table
+    ``wall_cells`` (C, K, 4) on the card, built as ``wall_table`` says."""
+    if not 1 <= spec.n_robots <= 1024:
+        raise ValueError(f"the env-step kernel takes 1 to 1024 robots an "
+                         f"arena, not {spec.n_robots}")
+    wall = wall_cells.contiguous()
+    group_id = None
+    if spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR:
+        # dense ids, so that a block's flag array has one slot a group
+        dense = np.unique(np.asarray(spec.group_id), return_inverse=True)[1]
+        group_id = torch.as_tensor(dense.reshape(-1), dtype=torch.int32,
+                                   device=wall.device)
+    lo = np.asarray(wall_table.lo, np.float32)
+    consts = EnvConsts(
+        wall=wall.data_ptr(),
+        group_id=None if group_id is None else group_id.data_ptr(),
+        k=wall_table.k, nx=wall_table.shape[0], ny=wall_table.shape[1],
+        lo_x=float(lo[0]), lo_y=float(lo[1]),
+        # PyTorch divides by a scalar as a product with its reciprocal
+        inv_cell=float(np.float32(1.0) / np.float32(wall_table.cell)),
+        n=spec.n_robots, mode=spec.reset_mode.value, substeps=spec.substeps,
+        timeout=spec.timeout, dist_zero=int(spec.dist_prev_zero_on_reset),
+        h=spec.dt / spec.substeps, radius_sq=spec.robot_radius ** 2,
+        diam_sq=(2.0 * spec.robot_radius) ** 2, goal_size=spec.goal_size,
+        omega=spec.omega_thresh)
+    return World(consts, wall, group_id,
+                 spec.reset_mode is ResetMode.FIXED_TABLES)
+
+
+@dataclasses.dataclass
+class Step:
+    """One step's outputs, (A, N, ...) views of the step's buffers.
+    ``phys_pose`` is the pose before any reset (where the reset sampler
+    draws from), ``reset`` the reset mask."""
+    pose: torch.Tensor
+    phys_pose: torch.Tensor
+    speed: torch.Tensor
+    goal: torch.Tensor
+    obs_goal: torch.Tensor
+    dist: torch.Tensor
+    ep_return: torch.Tensor
+    reward: torch.Tensor
+    info_return: torch.Tensor
+    dead: torch.Tensor
+    done: torch.Tensor
+    valid: torch.Tensor
+    reached: torch.Tensor
+    crashed: torch.Tensor
+    reset: torch.Tensor
+    step: torch.Tensor
+    result: torch.Tensor
+    floats: torch.Tensor     # the buffers the kernels write
+    bools: torch.Tensor
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: Each C entry point's arguments: the constants, the arena count, the
+#: tensors' pointers, the device and the stream.
+_ARGTYPES = {"env_physics_launch": [_P, _I] + [_P] * 11 + [_I, _P],
+             "env_reset_launch": [_P, _I] + [_P] * 5 + [_I, _P]}
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    fn = getattr(build.library(), name)
+    fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+    return fn
+
+
+def _require(cond: bool, msg) -> None:
+    if not cond:
+        raise ValueError(f"env step kernel: {msg()}")
+
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+
+def _count(kernel: str, robots: int) -> None:
+    global launches
+    launches += 1
+    launches_by_mode[kernel, robots, "float32"] += 1
+
+
+def physics(w: World, state, action: torch.Tensor) -> Step:
+    """Steps 1-3 of ``Env.step`` on the card in one launch: actions,
+    integration, collisions, reward, termination and the reset mask of
+    ``state`` (an ``EnvState``) under ``action`` (A, N, 2).  A world that
+    never resets is done; otherwise :func:`reset_apply` follows with the
+    sample drawn at ``phys_pose``."""
+    pose = state.pose
+    a, n = pose.shape[0], w.consts.n
+    inputs = (pose, state.goal, state.dist, state.step, state.dead,
+              state.ep_return, action)
+    _require(tuple(t.dtype for t in inputs)
+             == (_F32, _F32, _F32, _I32, _BOOL, _F32, _F32),
+             lambda: "dtypes " + str([t.dtype for t in inputs]))
+    _require(all(t.device == w.wall.device for t in inputs),
+             lambda: f"an input is not on {w.wall.device}")
+    _require(pose.shape == (a, n, 3) and action.shape == (a, n, 2),
+             lambda: f"pose {tuple(pose.shape)}, action "
+             f"{tuple(action.shape)} for {n} robots an arena")
+    _require(a > 0, lambda: "no arena")
+    inputs = [t.contiguous() for t in inputs]
+    dev, m = pose.device, a * n
+    floats = torch.empty(16 * m, dtype=_F32, device=dev)
+    bools = torch.empty((6, a, n), dtype=_BOOL, device=dev)
+    step = torch.empty((a, n), dtype=_I32, device=dev)
+    result = torch.empty((a, n), dtype=torch.int64, device=dev)
+    status = _launcher("env_physics_launch")(
+        ctypes.addressof(w.consts), a, *(t.data_ptr() for t in inputs),
+        floats.data_ptr(), bools.data_ptr(), step.data_ptr(),
+        result.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "env_physics")
+    _count("env_physics", m)
+    poses, pairs, scalars = floats.split([6 * m, 6 * m, 4 * m])
+    pose, phys = poses.view(2, a, n, 3).unbind(0)
+    speed, goal, obs_goal = pairs.view(3, a, n, 2).unbind(0)
+    dist, ep_return, reward, info_return = scalars.view(4, a, n).unbind(0)
+    return Step(pose, phys, speed, goal, obs_goal, dist, ep_return, reward,
+                info_return, *bools.unbind(0), step, result, floats, bools)
+
+
+def reset_apply(w: World, out: Step, reset_pose: torch.Tensor,
+                reset_goal: torch.Tensor) -> None:
+    """Steps 4-5 of ``Env.step`` on the card, into ``out``'s buffers: the
+    robots under ``out.reset`` take ``reset_pose`` (A, N, 3) and
+    ``reset_goal`` (A, N, 2), their first distance, and a zero counter,
+    speed and return."""
+    a, n = out.reset.shape
+    _require(reset_pose.shape == (a, n, 3) and reset_goal.shape == (a, n, 2)
+             and reset_pose.dtype == reset_goal.dtype == _F32
+             and reset_pose.device == reset_goal.device == w.wall.device,
+             lambda: f"reset sample {tuple(reset_pose.shape)} "
+             f"{reset_pose.dtype}, {tuple(reset_goal.shape)} "
+             f"{reset_goal.dtype} on {reset_pose.device}")
+    reset_pose, reset_goal = reset_pose.contiguous(), reset_goal.contiguous()
+    dev = out.floats.device
+    status = _launcher("env_reset_launch")(
+        ctypes.addressof(w.consts), a, reset_pose.data_ptr(),
+        reset_goal.data_ptr(), out.floats.data_ptr(), out.bools.data_ptr(),
+        out.step.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "env_reset")
+    _count("env_reset", a * n)

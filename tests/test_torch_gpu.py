@@ -7,13 +7,14 @@ imports no JAX, so it also runs on a machine that has none:
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from rl_collision_avoidance_torch.algo import PPOConfig
-from rl_collision_avoidance_torch.engine.env import Env
+from rl_collision_avoidance_torch.engine.env import Env, EnvState
 from rl_collision_avoidance_torch.models import CNNPolicy
-from rl_collision_avoidance_torch.ops import lidar_cuda, trunk_cuda
+from rl_collision_avoidance_torch.ops import env_cuda, lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
 from rl_collision_avoidance_torch.worlds import (circle, circle_train, mini,
                                                  stage1, stage1_rect, stage2)
@@ -361,30 +362,131 @@ def test_policy_grads_through_kernels_match_plain_path(cuda):
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0, msg=name)
 
 
-@pytest.mark.parametrize("make_spec", [stage1, stage2, circle, circle_train])
-def test_env_kernel_path_matches_plain_path(cuda, make_spec):
-    """Five steps of the same state, actions and reset draws through the
-    kernel path and the plain path on the card, in each world of the
-    curriculum (stage 2 and circle_train with their group resets, circle
-    with robots that finish and spin)."""
-    env = Env(make_spec(), device=cuda, seed=0)
-    plain = Env(make_spec(), device=cuda, use_kernels=False)
+def _step_fields(out) -> dict:
+    """(state', obs', reward, done, info) of ``Env.step`` by field name."""
+    state, obs, reward, done, info = out
+    return {**{f"state.{f.name}": getattr(state, f.name)
+               for f in dataclasses.fields(state)},
+            **{f"obs.{f.name}": getattr(obs, f.name)
+               for f in dataclasses.fields(obs)},
+            "reward": reward, "done": done,
+            **{f"info.{f.name}": getattr(info, f.name)
+               for f in dataclasses.fields(info)}}
+
+
+def _on_the_edges(env, state, arena: int):
+    """``state`` with, in ``arena``, robots on the step's thresholds (they
+    get action 0 from ``_edge_actions``, so they stay where they are):
+    robot 0 exactly ``goal_size`` from its goal and robot 1 just inside it,
+    robots 2 and 3 exactly two radii apart and robots 4 and 5 a hair
+    closer, robot 6 one radius from the wall's nearest point; robot 7 at
+    the timeout and robot 8 one step short of it; robots 9-11 dead."""
+    spec, r = env.spec, env.spec.robot_radius
+    pose, goal = state.pose.clone(), state.goal.clone()
+    step, dead = state.step.clone(), state.dead.clone()
+    g = spec.goal_size
+    for i, off in ((0, g), (1, float(np.nextafter(np.float32(g), 0)))):
+        goal[arena, i] = pose[arena, i, :2] + torch.tensor([off, 0.0],
+                                                           device=pose.device)
+    for i, gap in ((2, 2 * r), (4, 2 * r * (1 - 1e-6))):
+        pose[arena, i + 1, :2] = pose[arena, i, :2] + torch.tensor(
+            [gap, 0.0], device=pose.device)
+    valid = np.asarray(spec.seg_valid, bool)
+    p0 = np.asarray(spec.seg_p, np.float64)[valid][0]    # the first wall
+    e = np.asarray(spec.seg_e, np.float64)[valid][0]
+    normal = np.array([-e[1], e[0]]) / np.hypot(*e)
+    pose[arena, 6, :2] = torch.tensor(p0 + 0.5 * e + r * normal,
+                                      device=pose.device)
+    step[arena, 7] = spec.timeout
+    step[arena, 8] = spec.timeout - 1
+    dead[arena, 9:12] = True
+    dist = torch.linalg.vector_norm(goal - pose[..., :2], dim=-1)
+    return dataclasses.replace(state, pose=pose, goal=goal, step=step,
+                               dead=dead, dist=dist)
+
+
+def _edge_actions(act, arena: int):
+    act = act.clone()
+    act[arena, :9] = 0.0
+    return act
+
+
+#: (world, arenas, reset draws injected, obs dtype): the curriculum's
+#: worlds with their reset modes (stage 1 per robot, stage 2 and
+#: circle_train by group, circle never), with the tests' reset draws and
+#: with the env's own generator (the same seed on both paths, so the
+#: same draws), and bf16 scans.
+ENV_CASES = [(stage1, 8, True, None), (stage1, 8, False, None),
+             (stage2, 4, True, None), (stage2, 4, False, None),
+             (circle, 4, True, None), (circle_train, 3, True, None),
+             (circle_train, 3, False, None),
+             (stage1, 4, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("make_spec,arenas,inject,obs_dtype", ENV_CASES)
+def test_env_kernel_path_matches_plain_path(cuda, make_spec, arenas, inject,
+                                            obs_dtype):
+    """240 chained steps of the kernel path (``ops/env_cuda.py``) and of
+    ``use_kernels=False`` on the card from the same start, each path on its
+    own states: every bool and int field equal and every float field of
+    the env step bit-equal at every step (the scans, from the lidar kernel
+    and its plain version, within LIDAR_ATOL, and bf16 scans within one
+    bf16 ulp more).  Actions run out of their
+    bounds; every 40 steps the last arena gets robots on the thresholds
+    (``_on_the_edges``), and every 60 steps the first arena times out as a
+    whole, so that stage 2's and circle_train's groups reset.  The kernel
+    path leaves its input state as it was."""
+    env = Env(make_spec(), device=cuda, seed=0, obs_dtype=obs_dtype)
+    plain = Env(make_spec(), device=cuda, seed=0, use_kernels=False,
+                obs_dtype=obs_dtype)
+    assert env._kernels is not None and plain._kernels is None
     n = env.n_robots
-    pose, goal = env.sample_pose_goal(8)
-    state, obs = env.reset(8, pose, goal)
-    pstate, pobs = plain.reset(8, pose, goal)
-    torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL, rtol=0)
+    state, _ = env.reset(arenas)
+    pstate, _ = plain.reset(arenas)
     g = torch.Generator(device=cuda).manual_seed(1)
-    for _ in range(5):
-        act = torch.rand((8, n, 2), generator=g, device=cuda) * 2 - 0.5
-        rp, rg = env.sample_pose_goal(8, state.pose)
-        state, obs, r, d, _ = env.step(state, act, rp, rg)
-        pstate, pobs, pr, pd, _ = plain.step(pstate, act, rp, rg)
-        assert torch.equal(r, pr) and torch.equal(d, pd)
-        assert torch.equal(state.pose, pstate.pose)
-        assert torch.equal(state.dead, pstate.dead)
-        torch.testing.assert_close(obs.scans, pobs.scans, atol=LIDAR_ATOL,
-                                   rtol=0)
+    counts = env_cuda.launches_by_mode.copy()
+    resets = 0
+    for t in range(240):
+        act = torch.rand((arenas, n, 2), generator=g, device=cuda) * 4 - 1.5
+        if t % 40 == 20:
+            state = _on_the_edges(env, state, arenas - 1)
+            pstate = _on_the_edges(plain, pstate, arenas - 1)
+            act = _edge_actions(act, arenas - 1)
+        if t % 60 == 30:
+            state = dataclasses.replace(state, step=torch.where(
+                torch.arange(arenas, device=cuda)[:, None] == 0,
+                env.spec.timeout, state.step))
+            pstate = dataclasses.replace(pstate, step=state.step.clone())
+        draw = ((None, None) if not inject
+                else env.sample_pose_goal(arenas, state.pose))
+        before = {k: v.clone() for k, v in vars(state).items()}
+        got = _step_fields(env.step(state, act, *draw))
+        want = _step_fields(plain.step(pstate, act, *draw))
+        for k, v in vars(state).items():
+            assert torch.equal(v, before[k]), f"step {t}: {k} was written"
+        for k, w in want.items():
+            v = got[k]
+            assert v.dtype == w.dtype and v.shape == w.shape, k
+            if k in ("state.scan_hist", "obs.scans"):
+                # the two lidars agree within LIDAR_ATOL in float32; bf16
+                # scans may round such a pair one bf16 ulp apart
+                ulp = 2.0 ** -7 if obs_dtype == torch.bfloat16 else 0.0
+                assert bool(((v.float() - w.float()).abs() <= LIDAR_ATOL
+                             + ulp * w.float().abs()).all()), k
+            else:
+                assert torch.equal(v, w), f"step {t}: {k} differs"
+        state, pstate = (EnvState(**{k[6:]: v for k, v in out.items()
+                                     if k.startswith("state.")})
+                         for out in (got, want))
+        resets += int((state.step == 0).sum())
+    torch.cuda.synchronize()
+    fixed = make_spec().reset_mode.name == "FIXED_TABLES"
+    robots = arenas * n
+    assert env_cuda.launches_by_mode["env_physics", robots, "float32"] \
+        - counts["env_physics", robots, "float32"] == 240
+    assert env_cuda.launches_by_mode["env_reset", robots, "float32"] \
+        - counts["env_reset", robots, "float32"] == (0 if fixed else 240)
+    assert fixed or resets > 0
 
 
 def test_training_update_on_the_card(cuda):
@@ -396,9 +498,10 @@ def test_training_update_on_the_card(cuda):
     state = tr.init_state()
     before = [p.detach().clone() for p in state.policy.parameters()]
     counts = (lidar_cuda.launches, trunk_cuda.launches,
-              trunk_cuda.bwd_launches)
+              trunk_cuda.bwd_launches, env_cuda.launches)
     state, m = tr.train_step(state)
     assert lidar_cuda.launches - counts[0] == 16
+    assert env_cuda.launches - counts[3] == 2 * 16   # physics and reset
     assert trunk_cuda.launches - counts[1] == 16 + 1 + 6
     assert trunk_cuda.bwd_launches - counts[2] == 6
     for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):

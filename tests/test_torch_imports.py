@@ -128,7 +128,7 @@ def test_build_is_one_plain_nvcc_call_for_sm_90a():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {p.name for p in build.sources()} == {"lidar.cu", "trunk_fwd.cu",
-                                             "trunk_bwd.cu"}
+                                             "trunk_bwd.cu", "env_step.cu"}
     assert build.BUILD_ROOT == ROOT / "rl_collision_avoidance_torch" / "_build"
     assert "rl_collision_avoidance_torch/_build/" in (
         ROOT / ".gitignore").read_text().splitlines()
