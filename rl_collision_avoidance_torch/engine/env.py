@@ -292,7 +292,8 @@ class Env:
         when not given; a ``FIXED_TABLES`` world never resets and ignores
         them).  Returns (state', obs', reward, done, info); ``done`` stays
         True while a robot is dead.  Traced as ``env_step``, with
-        ``env_physics``, ``env_reset`` and ``env_lidar`` inside it.
+        ``env_physics``, ``env_reset`` and ``env_lidar`` inside it, and
+        ``env_sample`` (the env's own draw) inside ``env_reset``.
         """
         if (reset_pose is None) != (reset_goal is None):
             raise ValueError("pass both reset_pose and reset_goal, or "
@@ -312,8 +313,9 @@ class Env:
         if not kernels.fixed:
             with span("env_reset"):
                 if reset_pose is None:
-                    reset_pose, reset_goal = self.sample_pose_goal(
-                        out.pose.shape[0], out.phys_pose)
+                    with span("env_sample"):
+                        reset_pose, reset_goal = self.sample_pose_goal(
+                            out.pose.shape[0], out.phys_pose)
                 env_cuda.reset_apply(kernels, out, reset_pose, reset_goal)
         with span("env_lidar"):
             scan = self.scan_obs(out.pose)[:, :, None, :]
@@ -408,8 +410,9 @@ class Env:
         if reset_mask is not None:
             with span("env_reset"):
                 if reset_pose is None:
-                    reset_pose, reset_goal = self.sample_pose_goal(
-                        pose.shape[0], pose)
+                    with span("env_sample"):
+                        reset_pose, reset_goal = self.sample_pose_goal(
+                            pose.shape[0], pose)
                 m = reset_mask[..., None]
                 pose = torch.where(m, reset_pose, pose)
                 goal = torch.where(m, reset_goal, goal)

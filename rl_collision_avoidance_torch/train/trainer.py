@@ -308,9 +308,10 @@ class Trainer:
         ``perms`` (see ``ppo_update``) let tests inject every
         random draw.
         Returns the new state and the metrics of every rank's rollout as
-        Python numbers, with the keys of the JAX trainer's ``_train_step``;
-        in a process group ``noise``, ``resets`` and ``perms`` are the
-        rank's own."""
+        Python numbers, with the keys of the JAX trainer's ``_train_step``
+        and ``waiting``, the robot-steps spent dead waiting for a group to
+        finish (``~valid``; 0 where robots reset alone); in a process group
+        ``noise``, ``resets`` and ``perms`` are the rank's own."""
         cfg = self.cfg
         with span("rollout"):
             env_state, traj, last_value = self._rollout(state, noise, resets)
@@ -324,12 +325,14 @@ class Trainer:
         sums = dist.all_reduce_sum(torch.stack([
             (traj["done"] & traj["valid"]).sum().float(),
             traj["ep_return"].sum(), traj["reached"].sum().float(),
-            traj["crashed"].sum().float(), traj["reward"].mean()]))
+            traj["crashed"].sum().float(), traj["reward"].mean(),
+            (~traj["valid"]).sum().float()]))
         values = torch.cat([torch.stack([losses["policy_loss"],
                                          losses["value_loss"],
                                          losses["entropy"]]), sums]).tolist()
         keys = ("policy_loss", "value_loss", "entropy", "episodes",
-                "ep_return_sum", "reached", "crashed", "reward_mean")
+                "ep_return_sum", "reached", "crashed", "reward_mean",
+                "waiting")
         metrics = dict(zip(keys, values))
         metrics["reward_mean"] /= self.world
         metrics["env_steps"] = t * a * n * self.world

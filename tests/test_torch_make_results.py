@@ -182,7 +182,7 @@ def test_one_bf16_circle_ft_update_matches_jax(two_threads):
     mine, metrics = port_update(cfg16)
     exact, m32 = port_update(cfg)
     assert set(metrics) == set(jm)
-    for k in ("episodes", "reached", "crashed", "env_steps"):
+    for k in ("episodes", "reached", "crashed", "waiting", "env_steps"):
         assert metrics[k] == jm[k] == m32[k], k
     for k in ("policy_loss", "value_loss", "entropy", "ep_return_sum",
               "reward_mean"):

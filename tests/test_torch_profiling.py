@@ -4,7 +4,9 @@ leave a trace, ``nan_debug`` raises at a NaN-producing backward; and the
 CLI's ``bench`` subcommand and ``bench --scaling``.  The ``span`` gate:
 no ``record_function`` is entered while no profiler runs, the acting
 step's and ``Env.step``'s spans are in a trace, and tracing changes no
-number of a rollout."""
+number of a rollout.  The reset sampler's span ``env_sample`` and what it
+does to the benchmark's idle readers, and ``train_step``'s ``waiting``
+count."""
 import contextlib
 import json
 import sys
@@ -192,3 +194,121 @@ def test_a_traced_rollout_is_bit_equal(tmp_path):
     assert torch.equal(v0, v1)
     for k, x in vars(s0).items():
         assert torch.equal(x, getattr(s1, k)), k
+
+
+def _events(path) -> list:
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X"]
+
+
+@pytest.mark.parametrize("world", ["mini", "stage2"])
+def test_env_sample_nests_inside_env_reset(tmp_path, world):
+    """On the plain path the env's own reset draw (stage 1's disc sampler;
+    stage 2's tables and corridor sampler) is traced as ``env_sample``
+    inside ``env_reset``; an injected sample draws nothing."""
+    env = Env(get_world(world), device="cpu", seed=0)
+    state, _ = env.reset(1)
+    action = torch.zeros((1, env.n_robots, 2))
+    with trace(str(tmp_path / "own")):
+        env.step(state, action)
+    events = _events(tmp_path / "own" / "rank0.pt.trace.json")
+    (sample,) = [e for e in events if e["name"] == "env_sample"]
+    (reset,) = [e for e in events if e["name"] == "env_reset"]
+    assert sample["tid"] == reset["tid"]
+    assert reset["ts"] <= sample["ts"]
+    assert sample["ts"] + sample["dur"] <= reset["ts"] + reset["dur"]
+    with trace(str(tmp_path / "given")):
+        env.step(state, action, *env.sample_pose_goal(1))
+    names = _trace_names(tmp_path / "given" / "rank0.pt.trace.json")
+    assert "env_reset" in names and "env_sample" not in names
+
+
+@pytest.mark.parametrize("world", ["stage2", "mini"])
+def test_waiting_counts_the_robot_steps_dead_for_their_group(world):
+    """``train_step``'s ``waiting`` is the rollout's count of ``~valid``
+    robot-steps: stage 2's finished robots waiting for their group, none
+    where robots reset alone."""
+    if world == "stage2":
+        cfg = TrainConfig.stage2(n_arenas=1, horizon=8,
+                                 ppo=PPOConfig(batch_size=176, epochs=1))
+    else:
+        cfg = TrainConfig(world=world, n_arenas=1, horizon=8,
+                          ppo=PPOConfig(batch_size=16, epochs=1))
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    n, timeout = trainer.env.n_robots, trainer.spec.timeout
+    # stage 2: robot 0 times out at the first step and waits for the rest
+    # of its group; mini: every robot times out there and resets alone
+    steps = torch.zeros((1, n), dtype=torch.int32)
+    steps[0, :1 if world == "stage2" else n] = timeout
+    state.env_state.step = steps
+    seen, batch = [], trainer._batch
+
+    def counted(traj, last_value):
+        seen.append(int((~traj["valid"]).sum()))
+        return batch(traj, last_value)
+
+    trainer._batch = counted
+    _, metrics = trainer.train_step(state)
+    assert seen == [metrics["waiting"]]
+    if world == "stage2":
+        assert metrics["waiting"] >= cfg.horizon - 1
+    else:
+        assert metrics["waiting"] == 0 and metrics["episodes"] >= n
+
+
+def _idle_trace(kernels: bool, sample_span: str):
+    """One acting step's device operations, each tagged with the innermost
+    range it was launched in, and each range's device-side extent as
+    kineto builds it: from the first to the last operation launched
+    while it was the innermost range.  ``kernels``: ``Env.step``'s kernel
+    path, on which ``env_step`` launches nothing itself; the plain path
+    launches its masks and results directly in it.  The reset sampler's
+    two operations are launched in ``sample_span``."""
+    from benchmark import trace as tracing
+
+    ops = [("act_policy", 10, 12), ("act_step", 15, 16)]
+    ops += [] if kernels else [("env_step", 18, 19)]
+    ops += [("env_physics", 22, 24), (sample_span, 30, 31),
+            (sample_span, 35, 36), ("env_reset", 40, 41),
+            ("env_lidar", 44, 47)]
+    ops += [] if kernels else [("env_step", 49, 50)]
+    ops += [("act_step", 55, 56)]
+    extents = {}
+    for name, t0, t1 in ops:
+        lo, hi = extents.get(name, (t0, t1))
+        extents[name] = (min(lo, t0), max(hi, t1))
+    return tracing.Trace(
+        ops=[(f"kernel{i}", t0, t1) for i, (_, t0, t1) in enumerate(ops)],
+        spans=[(n, lo, hi) for n, (lo, hi) in extents.items()],
+        window_us=60.0, busy_us=0.0, gaps={})
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_env_sample_span_and_the_idle_readers(kernels):
+    """The idle readers on a step traced without and with ``env_sample``
+    (``benchmark/idle.py``, the span lists of ``metrics/``).
+    ``step_idle_ms`` reads the same either way.  ``env_idle_ms`` reads the
+    same where ``env_step`` has device work of its own (the plain path);
+    on the kernel path ``env_step`` has none and ``env_reset``'s extent
+    starts at its own launch, so the sampler's idle moves from
+    ``env_idle_ms`` to ``sample_idle_ms``: their sum is the old reading."""
+    from benchmark import idle, spec
+
+    spans = {m: spec.load_module(spec.HERE / "metrics" / f"{m}.py").SPANS
+             for m in ("step_idle_ms.train", "env_idle_ms.train",
+                       "sample_idle_ms.train")}
+    before = _idle_trace(kernels, "env_reset")
+    after = _idle_trace(kernels, "env_sample")
+    read = lambda tr, m: idle.span_ms(tr, spans[m])
+    assert read(before, "sample_idle_ms.train") is None
+    sampled = read(after, "sample_idle_ms.train")
+    assert sampled == pytest.approx((30 - 24 + 35 - 31) / 1e3)
+    assert read(after, "step_idle_ms.train") == pytest.approx(
+        read(before, "step_idle_ms.train"))
+    env_before = read(before, "env_idle_ms.train")
+    env_after = read(after, "env_idle_ms.train")
+    if kernels:
+        assert env_after + sampled == pytest.approx(env_before)
+    else:
+        assert env_after == pytest.approx(env_before)

@@ -69,7 +69,8 @@ def test_train_determinism():
 def test_train_loop_writes_the_jax_logs(tmp_path):
     """Trainer.train with MetricLogger writes the JAX package's log files;
     metrics.csv has the columns of the committed stage-1 curve plus
-    steps_per_s_ema, which the JAX Trainer.train adds (trainer.py:310)."""
+    steps_per_s_ema, which the JAX Trainer.train adds (trainer.py:310),
+    and the port's ``waiting`` count."""
     logger = MetricLogger(str(tmp_path), stdout=False)
     state = _mini_trainer().train(updates=2, log_fn=logger.log_update)
     assert state.update == 2
@@ -79,7 +80,7 @@ def test_train_loop_writes_the_jax_logs(tmp_path):
         rows = list(csv.DictReader(f))
     with open(ROOT / "results" / "stage1_metrics.csv") as f:
         curve = next(csv.reader(f))
-    assert sorted(rows[0]) == sorted(curve + ["steps_per_s_ema"])
+    assert sorted(rows[0]) == sorted(curve + ["steps_per_s_ema", "waiting"])
     assert [float(r["update"]) for r in rows] == [1.0, 2.0]
     assert all(np.isfinite(float(r["value_loss"])) for r in rows)
 

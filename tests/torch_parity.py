@@ -330,7 +330,10 @@ def jax_update(jenv, model, params, jstate, noise, key, cfg):
     new_params, _, losses = jppo.ppo_update(model.apply, params,
                                             tx.init(params), tx, batch, key,
                                             cfg)
+    # and the port's count of robot-steps waiting for a group, from the
+    # same trajectory
     metrics = {**{k: float(v) for k, v in losses.items()},
+               "waiting": float(jnp.sum(~info_t.valid)),
                "episodes": float(jnp.sum(done_t & info_t.valid)),
                "ep_return_sum": float(jnp.sum(info_t.ep_return)),
                "reached": float(jnp.sum(info_t.reached)),
