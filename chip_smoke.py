@@ -18,6 +18,10 @@ path ran through the kernels, at those batch sizes, and stayed right:
   one update);
 - a checkpoint round trip: a stage-2 update after a save and a restore into
   a fresh Trainer is bit-equal to the update without the break;
+- the acting step's CUDA graphs (``utils/graphs.py``): two stage-1 rollouts
+  at 768 robots, two stage-2 rollouts at 704 and the circle eval at 1,600
+  replayed from their graphs, bit-equal to the same steps run eagerly, with
+  the host microseconds a step both ways and the graph counts;
 - in bf16 (``--bf16 --obs-bf16``: the trunk kernels' bf16 mode on the
   tensor cores, a bf16 policy tail, bf16 scans): stage-1 acting at 128
   arenas and stage-1 training at 32 arenas, with the bf16 trunk forward
@@ -74,7 +78,11 @@ The env-step kernels (``ops/env_cuda.py``, every disc world's step on the
 card) are held to the plain chain (``use_kernels=False``) over chained
 steps at each world and batch of these paths: every field of the step
 equal, bit for bit; each path's launches of them are counted like the
-other kernels'.
+other kernels'.  On the training and eval paths the acting step's policy
+forward is captured once (a fresh trainer, or a fresh policy in the eval)
+and replayed: its kernel's launches there are the capture's
+``graphs.WARMUP`` warm-up runs and one a replay, besides the bootstrap's;
+the capture itself launches nothing.
 
 Right after the build it reads the library's SASS (``cuobjdump -sass``):
 every bf16 product, conv-pass and conv_bwd kernel must hold tensor-core
@@ -140,6 +148,7 @@ EVAL_MIN_SUCCESS = 0.90   # the committed TPU value is 0.994375
 S2_ARENAS = 16        # the stage-2 phase of results/META.json
 S2_MIN_GOAL = 0.20    # results/stage2_metrics.csv reads 0.43, 0.58 at updates 1-2
 FT_ARENAS = 16        # the circle_ft phase of results/META.json
+GRAPH_EVAL_STEPS = 300   # steps of each eval call graphed against eager
 # The rect footprint's committed TPU outcomes (results/circle_eval_rect.json):
 # the ring at success 1.0 with 0 collisions, culled to the 12 nearest at
 # 1.0, and 16 arenas at 0.3 m at a success mean of 0.835 with a std of
@@ -828,12 +837,13 @@ def call_memory(fn, key, what: str) -> dict:
 
 
 def reset_counts():
-    """Every kernel's launch counts to 0."""
+    """Every kernel's launch counts and the graph counts to 0."""
     from rl_collision_avoidance_torch.ops import (env_cuda, lidar_cuda,
                                                   trunk_cuda)
+    from rl_collision_avoidance_torch.utils import graphs
 
     lidar_cuda.launches = trunk_cuda.launches = trunk_cuda.bwd_launches = 0
-    env_cuda.launches = 0
+    env_cuda.launches = graphs.captures = graphs.replays = 0
     lidar_cuda.launches_by_mode.clear()
     trunk_cuda.launches_by_mode.clear()
     env_cuda.launches_by_mode.clear()
@@ -1380,6 +1390,147 @@ def run_training(device, card: str, cfg, params, updates: int,
     return launches, tr, state, metrics
 
 
+@contextlib.contextmanager
+def eager_steps():
+    """The acting step run eagerly on the card, as on the CPU: nothing is
+    captured inside the block (``utils/graphs.captured_on`` reads False)."""
+    from rl_collision_avoidance_torch.utils import graphs
+
+    captured_on = graphs.captured_on
+    graphs.captured_on = lambda device: False
+    try:
+        yield
+    finally:
+        graphs.captured_on = captured_on
+
+
+def graphed_and_eager(run):
+    """``run()`` twice, the first time with the acting step's graphs and
+    the second eagerly, each in a fresh count; returns the two outputs, the
+    (captures, replays) of the graphed run, the host us a step of each
+    (``run`` returns (out, steps of its timed part, its host seconds)) and
+    the launches the graphed run made beyond the eager one's, by (kernel,
+    batch, precision)."""
+    from rl_collision_avoidance_torch.utils import graphs
+
+    outs, counts, us, launches = [], None, [], []
+    for graphed in (True, False):
+        reset_counts()
+        with contextlib.nullcontext() if graphed else eager_steps():
+            out, steps, seconds = run()
+        if graphed:
+            counts = (graphs.captures, graphs.replays)
+        outs.append(out)
+        us.append(seconds / steps * 1e6)
+        launches.append(read_counts())
+    more = {k: launches[0].get(k, 0) - launches[1].get(k, 0)
+            for k in {*launches[0], *launches[1]}}
+    return outs, counts, us, {k: v for k, v in more.items() if v}
+
+
+def host_seconds(fn, device):
+    """(fn(), host seconds of ``fn`` up to a synchronize after it)."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+@phase("acting step graphs")
+def check_graphs(device, card: str):
+    """The acting step replayed from its CUDA graphs against the same step
+    run eagerly (``utils/graphs.py``), bit for bit: two stage-1 rollouts at
+    TRAIN_ARENAS arenas (768 robots) and two stage-2 rollouts at S2_ARENAS
+    (704) from the trained weights on the generators' draws (the
+    trajectory, the bootstrap value and the env state after each), and the
+    circle eval at EVAL_ARENAS arenas (1,600 robots, EVAL_NOISE m of
+    jitter) for GRAPH_EVAL_STEPS steps (every action handed to
+    ``Env.step``, each robot's first result and its step).  Prints the host
+    us a step both ways (the second rollout or call, which replays, up to
+    a synchronize) and the graph counts.  The kernels' launch counts of the
+    two ways differ by the policy graph's warm-up runs alone: each replay
+    counts the forward it launches."""
+    import dataclasses
+
+    import torch
+
+    from rl_collision_avoidance_torch.engine.env import Env
+    from rl_collision_avoidance_torch.eval import circle as circle_eval
+    from rl_collision_avoidance_torch.models import load_policy
+    from rl_collision_avoidance_torch.train import TrainConfig, Trainer
+    from rl_collision_avoidance_torch.utils import graphs
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+    from rl_collision_avoidance_torch.worlds import circle
+
+    def rollouts(cfg):
+        tr = Trainer(cfg, device=device)
+        state = tr.init_state()
+        state.policy.load_state_dict(jax_params_to_torch(load_jax_npz(
+            PARAMS)))
+        out = []
+        for _ in range(2):
+            (env_state, traj, value), seconds = host_seconds(
+                lambda: tr._rollout(state), device)
+            state = dataclasses.replace(state, env_state=env_state)
+            out += [*(traj[k].clone() for k in sorted(traj)), value,
+                    *vars(env_state).values()]
+        return out, cfg.horizon, seconds
+
+    def episodes():
+        policy = load_policy(CIRCLE_PARAMS, device=device)
+        env = Env(circle(), device=device, seed=SEED)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        noise = circle_eval.pose_noise_draw(EVAL_ARENAS, env.n_robots,
+                                            EVAL_NOISE, gen)
+        actions, env_step = [], env.step
+
+        def step(state, action, *args, **kwargs):
+            actions.append(action.clone())
+            return env_step(state, action, *args, **kwargs)
+
+        env.step = step
+        first = circle_eval.run_episodes(policy, env, EVAL_ARENAS,
+                                         GRAPH_EVAL_STEPS, noise)
+        del env.step
+        again, seconds = host_seconds(lambda: circle_eval.run_episodes(
+            policy, env, EVAL_ARENAS, GRAPH_EVAL_STEPS, noise), device)
+        return [*first, *again, *actions], GRAPH_EVAL_STEPS, seconds
+
+    s1 = TrainConfig.stage1(n_arenas=TRAIN_ARENAS, seed=SEED)
+    s2 = TrainConfig.stage2(n_arenas=S2_ARENAS, seed=SEED)
+    for what, robots, run, want in (
+            ("stage-1 rollouts", s1.n_arenas * 24, lambda: rollouts(s1),
+             (1, 2 * s1.horizon)),
+            ("stage-2 rollouts", s2.n_arenas * 44, lambda: rollouts(s2),
+             (1, 2 * s2.horizon)),
+            ("circle eval", EVAL_ARENAS * 50, episodes,
+             (2, 2 * 2 * GRAPH_EVAL_STEPS))):
+        what = f"{what}, {robots} robots"
+        (graphed, eager), counts, us, more = graphed_and_eager(run)
+        same = len(graphed) == len(eager) and all(
+            torch.equal(a, b) for a, b in zip(graphed, eager))
+        print(f"graphs: {what}: graphed bit-equal to eager: {same} "
+              f"({len(graphed)} tensors); host us a step graphed "
+              f"{us[0]:.1f}, eager {us[1]:.1f}; graphs captured {counts[0]}, "
+              f"replayed {counts[1]}; launches beyond eager's {more} "
+              f"[{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"graphs: {what}: the graphed step left "
+                                 f"the eager step's bits")
+        if counts != want:
+            raise AssertionError(f"graphs: {what}: (captures, replays) "
+                                 f"{counts}, not {want}")
+        if more != {("twin_trunks", robots, "float32"): graphs.WARMUP}:
+            raise AssertionError(f"graphs: {what}: the graphed run's "
+                                 f"launches beyond the eager run's are "
+                                 f"{more}, not the forward's "
+                                 f"{graphs.WARMUP} warm-up runs")
+
+
 def free_port() -> int:
     import socket
 
@@ -1746,11 +1897,14 @@ def check_split_update(device, results, got) -> None:
 
 
 def training_launches(tr, updates: int, steps_per_update: int) -> dict:
-    """The launches ``updates`` updates of the trainer ``tr`` make (on its
-    rank, in a process group): the rollout's horizon acting steps and its
-    bootstrap at the rank's arena batch each, one forward and one backward
-    for each of the rank's PPO minibatches."""
+    """The launches ``updates`` updates of a fresh trainer ``tr`` make (on
+    its rank, in a process group): the rollout's horizon acting steps and
+    its bootstrap at the rank's arena batch each, one forward and one
+    backward for each of the rank's PPO minibatches.  The acting step runs
+    from a CUDA graph, whose replays launch its forward; before its
+    capture, its ``graphs.WARMUP`` warm-up runs launch it too."""
     from rl_collision_avoidance_torch.models.policy import PRECISION
+    from rl_collision_avoidance_torch.utils import graphs
 
     cfg, precision = tr.cfg, PRECISION[tr.cfg.policy_dtype]
     robots = tr.n_local * tr.spec.n_robots
@@ -1758,7 +1912,8 @@ def training_launches(tr, updates: int, steps_per_update: int) -> dict:
     lidar = "lidar_obs_walls" if tr.env.walls_only else "lidar_obs"
     n = updates
     return {(lidar, robots, "float32"): n * cfg.horizon,
-            ("twin_trunks", robots, precision): n * (cfg.horizon + 1),
+            ("twin_trunks", robots, precision):
+                graphs.WARMUP + n * (cfg.horizon + 1),
             ("twin_trunks", mb, precision): n * steps_per_update,
             ("twin_trunks_grads", mb, precision): n * steps_per_update,
             **env_launches(tr.env, robots, n * cfg.horizon)}
@@ -2017,6 +2172,7 @@ def run_circle(device, card: str, arenas: int, noise: float,
 
     from rl_collision_avoidance_torch.eval import run_circle_eval
     from rl_collision_avoidance_torch.models import load_policy
+    from rl_collision_avoidance_torch.utils import graphs
     from rl_collision_avoidance_torch.worlds import circle
 
     rect = footprint == "rect"
@@ -2038,7 +2194,10 @@ def run_circle(device, card: str, arenas: int, noise: float,
     wall = time.perf_counter() - t0
     robots = arenas * 50
     launches = read_counts()
-    steps = launches.get(("twin_trunks", robots, "float32"), 0)  # one a step
+    # one forward a step, after the policy graph's warm-up runs
+    steps = launches.get(("twin_trunks", robots, "float32"), 0) - (
+        graphs.WARMUP if device.type == "cuda" else 0)
+    captured = graphs.captures
     what = (f"circle eval ({footprint}"
             + (f", culled to {cull_k}" if cull_k else "") + ")")
     print(f"{what}: {arenas} arena(s) at {noise} m: port (card) "
@@ -2047,16 +2206,21 @@ def run_circle(device, card: str, arenas: int, noise: float,
           f"results/{source} {key}) {json.dumps(committed)}", flush=True)
     print(f"{what}: {steps} steps of {robots} robots in {wall:.2f} s "
           f"wall = {robots * steps / wall:.1f} robot-steps/s (all robots had "
-          f"a result by step {steps}, or the limit); kernel launches (name, "
+          f"a result by step {steps}, or the limit); graphs captured "
+          f"{captured}, replayed {graphs.replays}; kernel launches (name, "
           f"batch, precision): {launches} [{card}]", flush=True)
     lidar = ("lidar_obs_walls" if rect or cull_k else "lidar_obs", robots,
              "float32")
     env_step = set() if rect else {("env_physics", robots, "float32")}
     if device.type == "cuda" and not (
             launches.get(lidar) and set(launches) == {
-                lidar, ("twin_trunks", robots, "float32"), *env_step}):
+                lidar, ("twin_trunks", robots, "float32"), *env_step}
+            and captured == 2 and graphs.replays == 2 * steps):
         raise AssertionError(f"a kernel of the eval never ran, or ran at "
-                             f"another batch: {launches}")
+                             f"another batch, or the step's two graphs were "
+                             f"not captured once each and replayed once a "
+                             f"step: {launches}, {captured} captures, "
+                             f"{graphs.replays} replays")
     if not rect:
         if arenas > 1 and not metrics["success_rate_mean"] >= EVAL_MIN_SUCCESS:
             raise AssertionError(f"circle eval success_rate_mean "
@@ -2692,6 +2856,7 @@ def main() -> int:
               run_circle(device, label, 1, 0.0)),
              (f"circle eval, {EVAL_ARENAS} arenas", "circle",
               run_circle(device, label, EVAL_ARENAS, EVAL_NOISE))]
+    check_graphs(device, label)
     launches, tr, state, _ = phase("stage-2 training")(run_training)(
         device, label, s2, PARAMS, 1 + TRAIN_UPDATES, S2_MIN_GOAL)
     paths.append(("stage-2 training", "stage2", launches))

@@ -17,10 +17,13 @@ every robot has one: the metrics are those of all ``max_steps`` steps.
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
 from ..engine.env import RESULT_CRASH, RESULT_GOAL, Env
+from ..utils import graphs
 from ..utils.profiling import span
 from ..worlds import circle as circle_world
 
@@ -36,14 +39,77 @@ def pose_noise_draw(n_arenas: int, n_robots: int, pose_noise: float,
     return pose_noise * (2.0 * u - 1.0)
 
 
+class _Episodes:
+    """The eval's acting step outside ``Env.step`` over static tensors, as
+    two ``utils/graphs.Step``s: ``act()``, the policy's clipped mean action
+    (A, N, 2) on ``scans``, ``goal`` and ``speed`` (an observation's
+    shapes), and ``book()``, which takes the step's ``result`` (A, N) into
+    each robot's first result and its step, counting the steps in
+    ``count``."""
+
+    def __init__(self, policy, obs):
+        a, n = obs.scans.shape[:2]
+        device = obs.scans.device
+        zeros = lambda x, dtype=None: torch.zeros(
+            x.shape, dtype=dtype or x.dtype, device=device)
+        self.scans, self.goal, self.speed = (zeros(x) for x in
+                                             (obs.scans, obs.goal, obs.speed))
+        self.result = torch.zeros((a, n), dtype=torch.int64, device=device)
+        self.first_result = zeros(self.result, torch.int32)
+        self.done_step = zeros(self.result, torch.int32)
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        flat = lambda x: x.reshape(a * n, *x.shape[2:])
+
+        def act():
+            _, mean, _ = policy(flat(self.scans), flat(self.goal),
+                                flat(self.speed))
+            return torch.stack([mean[:, 0].clamp(0.0, 1.0),
+                                mean[:, 1].clamp(-1.0, 1.0)],
+                               dim=-1).reshape(a, n, 2)
+
+        def book():
+            self.count.add_(1)
+            newly = (self.result != 0) & (self.first_result == 0)
+            torch.where(newly, self.result.to(torch.int32), self.first_result,
+                        out=self.first_result)
+            torch.where(newly, self.count, self.done_step, out=self.done_step)
+
+        self.act, self.book = (graphs.Step(f, device) for f in (act, book))
+
+    def reset(self) -> None:
+        for x in (self.first_result, self.done_step, self.count):
+            x.zero_()
+
+
+#: On the card, each live policy's eval steps by the layout of their inputs
+#: (``graphs.key``), with the parameters' addresses they were captured at:
+#: a sweep and the benchmark call ``run_episodes`` again with the same
+#: policy and shapes.  The entries go with their policy.
+_KEPT: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _episodes(policy, obs) -> _Episodes:
+    """The eval step of ``policy`` on observations like ``obs``: on the
+    card the one kept for them where the parameters are where it was
+    captured, else a new capture in its place; elsewhere a new one."""
+    if not graphs.captured_on(obs.scans.device):
+        return _Episodes(policy, obs)
+    layout, params = graphs.key(policy, obs.scans, obs.goal, obs.speed)
+    kept = _KEPT.setdefault(policy, {})
+    if kept.get(layout, (None,))[0] != params:
+        kept.pop(layout, None)         # its memory goes before the capture
+        kept[layout] = (params, _Episodes(policy, obs))
+    return kept[layout][1]
+
+
 def run_episodes(policy, env: Env, n_arenas: int, max_steps: int,
                  noise: torch.Tensor | None = None):
     """Run the scenario in ``n_arenas`` arenas for up to ``max_steps`` steps
     of mean actions; ``noise`` (A, N, 2) offsets the start x/y (arena 0's
     are ignored).  Returns (done_step, first_result, start_dist), each
-    (A, N) on the env's device."""
-    a, n = n_arenas, env.n_robots
-    state, obs = env.reset(a)
+    (A, N) on the env's device.  On the card the step outside ``Env.step``
+    is replayed from CUDA graphs kept for the next call."""
+    state, obs = env.reset(n_arenas)
     if noise is not None:
         noise = noise.clone()
         noise[0] = 0.0                 # arena 0 stays the reference scenario
@@ -55,30 +121,24 @@ def run_episodes(policy, env: Env, n_arenas: int, max_steps: int,
         obs = env.obs(state)
     start_dist = torch.linalg.vector_norm(state.goal - state.pose[..., :2],
                                           dim=-1)
-    done_step = torch.zeros((a, n), dtype=torch.int32, device=env.device)
-    first_result = torch.zeros_like(done_step)
-    flat = lambda x: x.reshape(a * n, *x.shape[2:])
     with torch.no_grad():
+        ep = _episodes(policy, obs)
+        ep.reset()
         for i in range(max_steps):
             with span("act_step"):
+                for k in ("scans", "goal", "speed"):
+                    getattr(ep, k).copy_(getattr(obs, k))
                 with span("act_policy"):
-                    _, mean, _ = policy(flat(obs.scans), flat(obs.goal),
-                                        flat(obs.speed))
-                action = torch.stack([mean[:, 0].clamp(0.0, 1.0),
-                                      mean[:, 1].clamp(-1.0, 1.0)],
-                                     dim=-1).reshape(a, n, 2)
+                    action = ep.act()
                 state, obs, _, _, info = env.step(state, action)
-                newly = (info.result != 0) & (first_result == 0)
-                first_result = torch.where(newly,
-                                           info.result.to(torch.int32),
-                                           first_result)
-                done_step = torch.where(newly, i + 1, done_step)
+                ep.result.copy_(info.result)
+                ep.book()
             if (i + 1) % CHECK_EVERY == 0:
                 with span("eval_check"):
-                    finished = bool((first_result != 0).all())
+                    finished = bool((ep.first_result != 0).all())
                 if finished:
                     break
-    return done_step, first_result, start_dist
+    return ep.done_step.clone(), ep.first_result.clone(), start_dist
 
 
 def circle_metrics(spec, done_step, first_result, start_dist, pose_noise,

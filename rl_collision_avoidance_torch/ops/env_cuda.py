@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import graphs
 from ..worlds.spec import ResetMode
 from . import build
 
@@ -177,7 +178,7 @@ def physics(w: World, state, action: torch.Tensor) -> Step:
         result.data_ptr(), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "env_physics")
-    _count("env_physics", m)
+    graphs.launched(_count, "env_physics", m)
     poses, pairs, scalars = floats.split([6 * m, 6 * m, 4 * m])
     pose, phys = poses.view(2, a, n, 3).unbind(0)
     speed, goal, obs_goal = pairs.view(3, a, n, 2).unbind(0)
@@ -207,4 +208,4 @@ def reset_apply(w: World, out: Step, reset_pose: torch.Tensor,
         out.step.data_ptr(), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "env_reset")
-    _count("env_reset", a * n)
+    graphs.launched(_count, "env_reset", a * n)

@@ -29,6 +29,7 @@ import torch
 
 from ..engine.celltable import lookup_cells
 from ..engine.lidar import raycast_culled, raycast_walls, rotate_beams
+from ..utils import graphs
 from . import build
 
 #: Kernel launches since the count was last set to 0.
@@ -36,6 +37,12 @@ launches = 0
 #: The same launches by (mode, robots, "float32"): mode "lidar_obs" for the
 #: walls and the discs, "lidar_obs_walls" for the walls alone.
 launches_by_mode: collections.Counter = collections.Counter()
+
+
+def _count(mode: str, robots: int) -> None:
+    global launches
+    launches += 1
+    launches_by_mode[mode, robots, "float32"] += 1
 
 #: The far-disc cut leaves this share of ``max_range`` as a margin over the
 #: float32 rounding of a hit distance (< 4e-4 of it; see :func:`disc_kept`).
@@ -210,8 +217,6 @@ def lidar_obs(pose, table, lo, cell: float, grid, dirs, radius: float,
         far_disc_c2(radius, max_range) if discs else 0.0,
         pose.device.index or 0, stream)
     build.check(status, "lidar_obs")
-    global launches
-    launches += 1
-    launches_by_mode["lidar_obs" if discs else "lidar_obs_walls", a * n,
-                     "float32"] += 1
+    graphs.launched(_count, "lidar_obs" if discs else "lidar_obs_walls",
+                    a * n)
     return out

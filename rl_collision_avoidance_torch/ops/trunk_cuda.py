@@ -36,6 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils import graphs
 from ..utils.profiling import span
 from . import build
 
@@ -49,6 +50,15 @@ launches_by_mode: collections.Counter = collections.Counter()
 #: Bytes of the workspace tensor each kernel's last launch allocated, by
 #: (kernel name, batch B, precision).
 workspace_bytes: dict = {}
+
+
+def _count(kernel: str, b: int, precision: str) -> None:
+    global launches, bwd_launches
+    if kernel == "twin_trunks":
+        launches += 1
+    else:
+        bwd_launches += 1
+    launches_by_mode[kernel, b, precision] += 1
 
 #: The kernels' modes, and the dtype of the features each gives.
 PRECISIONS = {"float32": torch.float32, "bf16": torch.bfloat16}
@@ -450,9 +460,7 @@ def _kernel_forward(scans, weights, precision: str) -> torch.Tensor:
                              scans.dtype == torch.bfloat16,
                              precision == "bf16", index, stream)
     build.check(status, "twin_trunks")
-    global launches
-    launches += 1
-    launches_by_mode["twin_trunks", b, precision] += 1
+    graphs.launched(_count, "twin_trunks", b, precision)
     workspace_bytes["twin_trunks", b, precision] = work.nbytes
     return out
 
@@ -541,9 +549,7 @@ def _kernel_grads(scans, weights, g, precision: str) -> tuple[tuple, tuple]:
             pl.conv_blocks, pl.fc1_splits, pl.dwf_splits,
             scans.dtype == torch.bfloat16, precision == "bf16", index, stream)
         build.check(status, "twin_trunks_grads")
-        global bwd_launches
-        bwd_launches += 1
-        launches_by_mode["twin_trunks_grads", b, precision] += 1
+        graphs.launched(_count, "twin_trunks_grads", b, precision)
         workspace_bytes["twin_trunks_grads", b, precision] = work.nbytes
     act, crt = (tuple(part.view(shapes[n]) for part, n in
                       zip(row.split(sizes), WEIGHT_NAMES)) for row in grads)

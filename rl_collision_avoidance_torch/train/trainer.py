@@ -46,6 +46,7 @@ from ..algo.ppo import (Batch, PPOConfig, normalize_shard_advantages,
 from ..engine.env import Env, EnvState
 from ..models import CNNPolicy, distributions
 from ..parallel import dist
+from ..utils import graphs
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer, span, trace
 from ..worlds import get_world
@@ -141,6 +142,51 @@ class TrainState:
     update: int
 
 
+class _Acting:
+    """The acting step outside ``Env.step`` over static tensors, as
+    ``utils/graphs.Step`` captures it on the card: the policy on ``scans``,
+    ``goal`` and ``speed`` (an observation's shapes), the Gaussian sample
+    on the standard-normal ``noise`` (E, 2), its log-prob, and the writes
+    of the observation, action, log-prob and value into ``traj`` at the
+    step index ``t`` (on the device), which the step advances.  ``step()``
+    returns the (A, N, 2) raw action."""
+
+    def __init__(self, policy: CNNPolicy, obs, horizon: int):
+        a, n = obs.scans.shape[:2]
+        device = obs.scans.device
+        self.scans, self.goal, self.speed = (
+            torch.zeros(x.shape, dtype=x.dtype, device=device)
+            for x in (obs.scans, obs.goal, obs.speed))
+        self.noise = torch.zeros((a * n, 2), device=device)
+        self.t = torch.zeros((1,), dtype=torch.long, device=device)
+        buf = lambda *shape, dtype=torch.float32: torch.empty(
+            (horizon, a, n, *shape), dtype=dtype, device=device)
+        self.traj = {"scans": buf(*obs.scans.shape[2:],
+                                  dtype=obs.scans.dtype),
+                     "goal": buf(2), "speed": buf(2), "action": buf(2),
+                     "logprob": buf(), "value": buf(), "reward": buf(),
+                     **{k: buf(dtype=torch.bool) for k in
+                        ("done", "valid", "reached", "crashed")},
+                     "ep_return": buf()}
+        flat = lambda x: x.reshape(a * n, *x.shape[2:])
+
+        def step():
+            value, mean, logstd = policy(flat(self.scans), flat(self.goal),
+                                         flat(self.speed))
+            raw = distributions.sample(mean, logstd, self.noise)
+            logprob = distributions.log_normal_density(raw, mean, logstd)
+            for k, x in (("scans", self.scans), ("goal", self.goal),
+                         ("speed", self.speed), ("action", raw),
+                         ("logprob", logprob), ("value", value)):
+                into = self.traj[k]
+                into.index_copy_(0, self.t, x.reshape(1, *into.shape[1:]))
+            # modulo the horizon: the capture's warm-up runs steps too
+            self.t.add_(1).remainder_(horizon)
+            return raw.reshape(a, n, 2)
+
+        self.step = graphs.Step(step, device)
+
+
 class Trainer:
     """Owns the env and runs updates on one device (the CUDA card unless
     ``device`` says otherwise).  In a process group it is this rank's
@@ -157,6 +203,8 @@ class Trainer:
         self.env = Env(self.spec, device=self.device,
                        seed=dist.rank_seed(cfg.seed),
                        obs_dtype=cfg.obs_store_dtype)
+        # (key, _Acting) of the last rollout on the card: see _acting_for
+        self._acting = None
 
     def _policy_and_optimizer(self, seed: int):
         """A policy with PyTorch's default init from a generator seeded by
@@ -232,44 +280,47 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    def _acting_for(self, policy: CNNPolicy, obs) -> _Acting:
+        """The acting step of ``policy`` on observations like ``obs``: on
+        the card the last rollout's where its ``graphs.key`` holds, else a
+        new capture in its place; elsewhere a new one, with trajectory
+        buffers of its own."""
+        if not graphs.captured_on(self.device):
+            return _Acting(policy, obs, self.cfg.horizon)
+        key = (graphs.key(policy, obs.scans, obs.goal, obs.speed),
+               self.cfg.horizon)
+        if self._acting is None or self._acting[0] != key:
+            self._acting = None   # a stage-1 trajectory alone is 0.6 GB
+            self._acting = (key, _Acting(policy, obs, self.cfg.horizon))
+        return self._acting[1]
+
     def _rollout(self, state: TrainState, noise=None, resets=None):
         """``horizon`` acting steps.  ``noise`` (T, E, 2) and ``resets`` (T
-        pairs of reset pose and goal) replace the generators' draws."""
+        pairs of reset pose and goal) replace the generators' draws.  On the
+        card the trajectory is the trainer's own buffers, rewritten by the
+        next rollout at the same shape."""
         cfg, env, policy = self.cfg, self.env, state.policy
         env_state = state.env_state
         obs = env.obs(env_state)
         a, n = obs.scans.shape[:2]
-        e = a * n
-        flat = lambda x: x.reshape(e, *x.shape[2:])
-        buf = lambda *shape, dtype=torch.float32: torch.empty(
-            (cfg.horizon, a, n, *shape), dtype=dtype, device=self.device)
-        traj = {"scans": buf(*obs.scans.shape[2:], dtype=obs.scans.dtype),
-                "goal": buf(2),
-                "speed": buf(2), "action": buf(2), "logprob": buf(),
-                "value": buf(), "reward": buf(),
-                **{k: buf(dtype=torch.bool) for k in
-                   ("done", "valid", "reached", "crashed")},
-                "ep_return": buf()}
+        flat = lambda x: x.reshape(a * n, *x.shape[2:])
         with torch.no_grad():
+            acting = self._acting_for(policy, obs)
+            acting.t.zero_()
+            traj = acting.traj
             for t in range(cfg.horizon):
                 with span("act_step"):
-                    with span("act_policy"):
-                        value, mean, logstd = policy(flat(obs.scans),
-                                                     flat(obs.goal),
-                                                     flat(obs.speed))
-                    raw = distributions.sample(
-                        mean, logstd, None if noise is None else noise[t],
-                        state.generator)
-                    logprob = distributions.log_normal_density(raw, mean,
-                                                               logstd)
                     for k in ("scans", "goal", "speed"):
-                        traj[k][t] = getattr(obs, k)
-                    traj["action"][t] = raw.reshape(a, n, 2)
-                    traj["logprob"][t] = logprob.reshape(a, n)
-                    traj["value"][t] = value.reshape(a, n)
+                        getattr(acting, k).copy_(getattr(obs, k))
+                    if noise is None:
+                        acting.noise.normal_(generator=state.generator)
+                    else:
+                        acting.noise.copy_(noise[t])
+                    with span("act_policy"):
+                        action = acting.step()
                     # the env clips the raw sample to the action bounds
                     env_state, obs, reward, done, info = env.step(
-                        env_state, raw.reshape(a, n, 2),
+                        env_state, action,
                         *(resets[t] if resets is not None else (None, None)))
                     traj["reward"][t] = reward
                     traj["done"][t] = done
@@ -345,8 +396,9 @@ class Trainer:
               checkpoint_manager=None, checkpoint_every: int = 20,
               profile_dir: str | None = None) -> TrainState:
         """Host loop: ``updates`` (``cfg.max_updates``) updates, each logged
-        through ``log_fn`` with ``update``, ``steps_per_s`` and
-        ``steps_per_s_ema`` added.  With a ``checkpoint_manager``
+        through ``log_fn`` with ``update``, ``steps_per_s``,
+        ``steps_per_s_ema`` and the update's ``graph_captures`` and
+        ``graph_replays`` (``utils/graphs.py``; 0 off the card) added.  With a ``checkpoint_manager``
         (``utils/checkpoint.py``), every ``checkpoint_every``-th update
         (the reference's cadence, ``ppo_stage1.py:122-126``) saves the full
         state, and keeps it as the best when its goal share of ended
@@ -364,9 +416,12 @@ class Trainer:
             for i in range(n):
                 if profile_dir is not None and i == first:
                     tracing.enter_context(trace(profile_dir))
+                counts = (graphs.captures, graphs.replays)
                 timer.start()
                 state, metrics = self.train_step(state)  # ends in a host sync
                 metrics["steps_per_s"] = timer.stop(int(metrics["env_steps"]))
+                metrics["graph_captures"] = graphs.captures - counts[0]
+                metrics["graph_replays"] = graphs.replays - counts[1]
                 metrics["update"] = state.update
                 metrics["steps_per_s_ema"] = timer.ema
                 if i == first + PROFILE_UPDATES - 1:

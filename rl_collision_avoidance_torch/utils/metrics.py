@@ -55,10 +55,12 @@ class MetricLogger:
         mean_ret = float(m.get("ep_return_sum", 0.0)) / ep
         self.output.info(
             "Update %05d, Episodes %4d, MeanReturn %7.2f, Reached %4d, "
-            "Crashed %4d, Reward/step %6.3f, %7.0f steps/s"
+            "Crashed %4d, Reward/step %6.3f, %7.0f steps/s, graphs %d "
+            "captured, %d replayed"
             % (m.get("update", 0), m.get("episodes", 0), mean_ret,
                m.get("reached", 0), m.get("crashed", 0),
-               m.get("reward_mean", 0.0), m.get("steps_per_s", 0.0)))
+               m.get("reward_mean", 0.0), m.get("steps_per_s", 0.0),
+               m.get("graph_captures", 0), m.get("graph_replays", 0)))
         self.cal.info("%s" % mean_ret)
         self.ppo.info("%s, %s, %s" % (m.get("policy_loss"),
                                       m.get("value_loss"), m.get("entropy")))

@@ -6,6 +6,9 @@ imports no JAX, so it also runs on a machine that has none:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import gc
+import weakref
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,11 +19,14 @@ from rl_collision_avoidance_torch.engine.env import Env, EnvState
 from rl_collision_avoidance_torch.models import CNNPolicy
 from rl_collision_avoidance_torch.ops import env_cuda, lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
-from rl_collision_avoidance_torch.worlds import (circle, circle_train, mini,
-                                                 stage1, stage1_rect, stage2)
+from rl_collision_avoidance_torch.utils import graphs
+from rl_collision_avoidance_torch.worlds import (circle, circle_train,
+                                                 get_world, mini, stage1,
+                                                 stage1_rect, stage2)
 
 pytestmark = pytest.mark.gpu
 
+RESULTS = Path(__file__).resolve().parents[1] / "results"
 LIDAR_ATOL = 1e-5
 TRUNK_TOL = 1e-4  # absolute and relative; a 4096-long f32 sum in another order
 
@@ -498,11 +504,15 @@ def test_training_update_on_the_card(cuda):
     state = tr.init_state()
     before = [p.detach().clone() for p in state.policy.parameters()]
     counts = (lidar_cuda.launches, trunk_cuda.launches,
-              trunk_cuda.bwd_launches, env_cuda.launches)
+              trunk_cuda.bwd_launches, env_cuda.launches, graphs.captures,
+              graphs.replays)
     state, m = tr.train_step(state)
     assert lidar_cuda.launches - counts[0] == 16
     assert env_cuda.launches - counts[3] == 2 * 16   # physics and reset
-    assert trunk_cuda.launches - counts[1] == 16 + 1 + 6
+    # the acting step: one capture, after its warm-up runs, and 16 replays,
+    # each launching the forward; then the bootstrap and PPO
+    assert (graphs.captures - counts[4], graphs.replays - counts[5]) == (1, 16)
+    assert trunk_cuda.launches - counts[1] == graphs.WARMUP + 16 + 1 + 6
     assert trunk_cuda.bwd_launches - counts[2] == 6
     for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
         assert torch.isfinite(torch.tensor(m[k])), k
@@ -641,10 +651,14 @@ def test_bf16_training_update_on_the_card(cuda):
     state = tr.init_state()
     assert state.env_state.scan_hist.dtype == torch.bfloat16
     before = dict(trunk_cuda.launches_by_mode)
+    replays = graphs.replays
     state, m = tr.train_step(state)
     after = trunk_cuda.launches_by_mode
+    # the acting step's warm-up runs before its capture, its 16 replays
+    # and the bootstrap
     assert after["twin_trunks", 48, "bf16"] - before.get(
-        ("twin_trunks", 48, "bf16"), 0) == 17
+        ("twin_trunks", 48, "bf16"), 0) == graphs.WARMUP + 16 + 1
+    assert graphs.replays - replays == 16
     assert after["twin_trunks_grads", 256, "bf16"] - before.get(
         ("twin_trunks_grads", 256, "bf16"), 0) == 6
     for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
@@ -784,6 +798,179 @@ def test_results_pipeline_selection_on_the_card(cuda, tmp_path,
     assert all(torch.equal(kept[k], v) for k, v in first_best.items())
     assert all(torch.isfinite(v).all() for v in kept.values())
     assert (tmp_path / "circle_ft_metrics.csv").is_file()
+
+
+# ---------------------------------------------------------------------------
+# The acting step's CUDA graphs (utils/graphs.py): the graphed step against
+# the same step callable run eagerly (graphs.captured_on patched to False)
+# ---------------------------------------------------------------------------
+
+TRAIN_PRESETS = {"stage1": TrainConfig.stage1, "stage2": TrainConfig.stage2}
+GRAPH_HORIZON = 16
+
+
+def _small_trainer(cuda, world, dtype=torch.float32):
+    """2 arenas of ``world`` at GRAPH_HORIZON steps, 4 minibatches x 2
+    epochs; bf16 policy and scans with ``dtype`` bf16."""
+    n = get_world(world).n_robots
+    bf16 = dtype == torch.bfloat16
+    cfg = TRAIN_PRESETS[world](
+        n_arenas=2, horizon=GRAPH_HORIZON,
+        ppo=PPOConfig(batch_size=2 * n * GRAPH_HORIZON // 4, epochs=2),
+        policy_dtype=dtype, obs_store_dtype=dtype if bf16 else None)
+    return Trainer(cfg, device=cuda)
+
+
+def _three_updates(cuda, world, dtype, inject):
+    """Three updates from a fresh trainer, with the PPO update between the
+    rollouts; ``inject``: the action noise and reset samples given (drawn
+    from a seeded generator and the env's sampler).  Returns each update's
+    metrics, parameters and env state, the rise of the graph counts and of
+    the forward kernel's launches, and a last rollout's trajectory and
+    bootstrap value."""
+    tr = _small_trainer(cuda, world, dtype)
+    state = tr.init_state()
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    e = 2 * tr.spec.n_robots
+    counts = (graphs.captures, graphs.replays, trunk_cuda.launches)
+    out = []
+    for _ in range(3):
+        draws = () if not inject else (
+            torch.randn((GRAPH_HORIZON, e, 2), generator=gen, device=cuda),
+            [tr.env.sample_pose_goal(2) for _ in range(GRAPH_HORIZON)])
+        state, m = tr.train_step(state, *draws)
+        out += [m, *(v.clone() for v in state.policy.state_dict().values()),
+                *(x.clone() for x in vars(state.env_state).values())]
+    rises = (graphs.captures - counts[0], graphs.replays - counts[1],
+             trunk_cuda.launches - counts[2])
+    _, traj, value = tr._rollout(state)
+    out += [*(traj[k].clone() for k in sorted(traj)), value]
+    return out, rises
+
+
+def _same(a, b) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("world,dtype,inject", [
+    ("stage1", torch.float32, True), ("stage1", torch.float32, False),
+    ("stage2", torch.float32, True), ("stage2", torch.float32, False),
+    ("stage1", torch.bfloat16, False), ("stage2", torch.bfloat16, True)])
+def test_graphed_updates_are_the_eager_updates(cuda, monkeypatch, world,
+                                               dtype, inject):
+    """Three stage-1 or stage-2 updates with the acting step replayed from
+    its graph are the updates with the step run eagerly, bit for bit: every
+    metric, parameter and env tensor after each update (so each replay read
+    the parameters the PPO update wrote in place), and a fourth rollout;
+    in float32 and bf16, on injected draws and on the generators'.  One
+    capture, then one replay a step, which counts the forward it launches:
+    the kernel's launches are the eager updates' and the capture's warm-up
+    runs."""
+    graphed, rises = _three_updates(cuda, world, dtype, inject)
+    assert rises[:2] == (1, 3 * GRAPH_HORIZON)
+    monkeypatch.setattr(graphs, "captured_on", lambda device: False)
+    eager, eager_rises = _three_updates(cuda, world, dtype, inject)
+    assert eager_rises[:2] == (0, 0)
+    assert rises[2] == eager_rises[2] + graphs.WARMUP
+    assert _same(graphed, eager)
+
+
+def _circle_eval_setup(cuda, arenas):
+    from rl_collision_avoidance_torch.eval import circle as circle_eval
+    from rl_collision_avoidance_torch.models import load_policy
+
+    policy = load_policy(RESULTS / "circle_ft_params.npz", device=cuda)
+    env = Env(circle(), device=cuda, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    noise = circle_eval.pose_noise_draw(arenas, env.n_robots, 0.1, gen)
+    return circle_eval, policy, env, noise
+
+
+def _stepped(env, actions):
+    """``env.step`` recording a copy of each action it is handed."""
+    env_step = env.step
+
+    def step(state, action, *args, **kwargs):
+        actions.append(action.clone())
+        return env_step(state, action, *args, **kwargs)
+    return step
+
+
+def test_graphed_eval_is_the_eager_eval(cuda, monkeypatch):
+    """run_episodes on the circle, 4 arenas at 0.1 m of jitter, until the
+    eval_check ends it: every action handed to Env.step and each robot's
+    first result and its step are the eager step's, bit for bit."""
+    circle_eval, policy, env, noise = _circle_eval_setup(cuda, 4)
+    runs = []
+    for graphed in (True, False):
+        if not graphed:
+            monkeypatch.setattr(graphs, "captured_on", lambda device: False)
+        actions = []
+        monkeypatch.setattr(env, "step", _stepped(env, actions))
+        done, first, start = circle_eval.run_episodes(policy, env, 4, 3000,
+                                                      noise)
+        monkeypatch.undo()
+        runs.append([done, first, start, *actions])
+    assert bool((runs[0][1] != 0).all())         # every robot has a result
+    assert len(runs[0]) - 3 < 3000               # so the check ended it
+    assert _same(*runs)
+
+
+def test_a_new_eval_shape_captures_and_the_same_replays(cuda):
+    """run_episodes again at the same arena count replays the kept graphs;
+    at a second arena count it captures the policy's and the
+    bookkeeping's graphs once each; every call replays both a step."""
+    circle_eval, policy, env, noise = _circle_eval_setup(cuda, 5)
+    steps = 20
+    rises = []
+    for arenas in (3, 3, 5):
+        before = (graphs.captures, graphs.replays)
+        circle_eval.run_episodes(policy, env, arenas, steps, noise[:arenas])
+        rises.append((graphs.captures - before[0],
+                      graphs.replays - before[1]))
+    assert rises[1:] == [(0, 2 * steps), (2, 2 * steps)]
+    assert rises[0][1] == 2 * steps
+
+
+def test_kept_eval_graphs_go_with_their_policy(cuda):
+    """The eval's kept graphs hold no reference to their policy: once the
+    caller drops the policy, they go with it."""
+    circle_eval, policy, env, noise = _circle_eval_setup(cuda, 2)
+    circle_eval.run_episodes(policy, env, 2, 5, noise)
+    assert policy in circle_eval._KEPT
+    kept, gone = len(circle_eval._KEPT), weakref.ref(policy)
+    del policy
+    gc.collect()
+    assert gone() is None and len(circle_eval._KEPT) < kept
+
+
+def test_checkpoint_round_trip_across_graphed_updates(cuda, tmp_path):
+    """A stage-1 update with the graphed acting step, a save, two more
+    updates; the save restored into the same trainer (a new policy: a new
+    graph key, captured once) gives the same two updates bit for bit."""
+    from rl_collision_avoidance_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    tr = _small_trainer(cuda, "stage1")
+    state, _ = tr.train_step(tr.init_state())
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state.update, tr.state_dict(state))
+    runs = []
+    for _ in range(2):
+        captures = graphs.captures
+        out = []
+        for _ in range(2):
+            state, m = tr.train_step(state)
+            out += [m, *(v.clone() for v in
+                         state.policy.state_dict().values()),
+                    *(x.clone() for x in vars(state.env_state).values())]
+        runs.append((out, graphs.captures - captures))
+        state = tr.load_state_dict(mgr.restore(1, tr.device))
+    (ahead, none), (again, one) = runs
+    assert (none, one) == (0, 1)
+    assert _same(ahead, again)
 
 
 # ---------------------------------------------------------------------------

@@ -70,7 +70,7 @@ def test_train_loop_writes_the_jax_logs(tmp_path):
     """Trainer.train with MetricLogger writes the JAX package's log files;
     metrics.csv has the columns of the committed stage-1 curve plus
     steps_per_s_ema, which the JAX Trainer.train adds (trainer.py:310),
-    and the port's ``waiting`` count."""
+    the port's ``waiting`` count and the update's CUDA-graph counts."""
     logger = MetricLogger(str(tmp_path), stdout=False)
     state = _mini_trainer().train(updates=2, log_fn=logger.log_update)
     assert state.update == 2
@@ -80,7 +80,9 @@ def test_train_loop_writes_the_jax_logs(tmp_path):
         rows = list(csv.DictReader(f))
     with open(ROOT / "results" / "stage1_metrics.csv") as f:
         curve = next(csv.reader(f))
-    assert sorted(rows[0]) == sorted(curve + ["steps_per_s_ema", "waiting"])
+    assert sorted(rows[0]) == sorted(curve + ["steps_per_s_ema", "waiting",
+                                              "graph_captures",
+                                              "graph_replays"])
     assert [float(r["update"]) for r in rows] == [1.0, 2.0]
     assert all(np.isfinite(float(r["value_loss"])) for r in rows)
 
