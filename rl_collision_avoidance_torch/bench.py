@@ -6,28 +6,24 @@ training updates under the world's preset (stage 1; ``--world stage2``,
 Counterparts of the acting mode of ``rl_collision_avoidance_tpu/bench.py``
 (its ``one_step``) and of its ``measure_training``.  Times come from CUDA
 events around work that starts after a warm-up, and are printed with the
-card's name and power limit.  ``--profile`` instead traces a window with
-torch.profiler and prints where the device time goes and the device's idle
-share of the window: by kernel for acting, by phase of the update (rollout,
-GAE, PPO forward, trunk backward kernel, the rest of autograd, Adam) for
-training.  ``--bf16`` runs the policy in bf16 (the trunk kernels' bf16
-mode) and ``--obs-bf16`` stores the scans in bf16, as the JAX bench's
-flags do; ``--f32`` forces both off.  Unlike the JAX acting bench, whose
-default is bf16, both modes here default to float32.  ``--footprint rect``
-runs the acting bench with Stage's exact box footprint (collision and lidar
-silhouettes) and ``--disc-cull K`` culls the silhouettes to each robot's K
-nearest, as the JAX bench's flags do; ``--train --world stage1_rect``
-trains on the box footprint.  ``--scaling N`` is the counterpart of the
-JAX bench's CPU scaling proof (``measure_scaling``): the acting rate of 1
-and of N gloo processes on the CPU, on mini, one thread each.  Usage::
+card's name and power limit.  ``--bf16`` runs the policy in bf16 (the
+trunk kernels' bf16 mode) and ``--obs-bf16`` stores the scans in bf16, as
+the JAX bench's flags do; ``--f32`` forces both off.  Unlike the JAX
+acting bench, whose default is bf16, both modes here default to float32.
+``--footprint rect`` runs the acting bench with Stage's exact box footprint
+(collision and lidar silhouettes) and ``--disc-cull K`` culls the
+silhouettes to each robot's K nearest, as the JAX bench's flags do;
+``--train --world stage1_rect`` trains on the box footprint.  ``--scaling
+N`` is the counterpart of the JAX bench's CPU scaling proof
+(``measure_scaling``): the acting rate of 1 and of N gloo processes on the
+CPU, on mini, one thread each.  Usage::
 
     python -m rl_collision_avoidance_torch.bench --arenas 128 --steps 256
     python -m rl_collision_avoidance_torch.bench --bf16 --obs-bf16
-    python -m rl_collision_avoidance_torch.bench --profile --steps 20
-    python -m rl_collision_avoidance_torch.bench --train [--profile] --arenas 32
-    python -m rl_collision_avoidance_torch.bench --train --profile \
-        --world stage2 --arenas 16
-    python -m rl_collision_avoidance_torch.bench [--profile] --footprint rect
+    python -m rl_collision_avoidance_torch.bench --train --arenas 32
+    python -m rl_collision_avoidance_torch.bench --train --world stage2 \
+        --arenas 16
+    python -m rl_collision_avoidance_torch.bench --footprint rect
     python -m rl_collision_avoidance_torch.bench --train --world stage1_rect
     python -m rl_collision_avoidance_torch.bench --scaling 2
 """
@@ -104,10 +100,13 @@ def _mode(policy_dtype, obs_dtype, footprint=None, disc_cull_k=None) -> dict:
     return out
 
 
-def _warm_start(arenas, warmup, world, params, seed, policy_dtype,
-                obs_dtype, footprint=None, disc_cull_k=None):
-    """Env, policy and sampler on the card, after ``warmup`` acting steps;
-    ``footprint`` overrides the world's."""
+def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
+            world: str = "stage1", params: str = DEFAULT_PARAMS,
+            seed: int = 0, policy_dtype: torch.dtype = torch.float32,
+            obs_dtype: torch.dtype | None = None, footprint: str | None = None,
+            disc_cull_k: int | None = None) -> dict:
+    """Robot-steps/s of the acting loop on the CUDA card, after ``warmup``
+    acting steps; ``footprint`` overrides the world's."""
     spec = get_world(world)
     if footprint is not None:
         spec = dataclasses.replace(spec, footprint=footprint)
@@ -118,18 +117,6 @@ def _warm_start(arenas, warmup, world, params, seed, policy_dtype,
     gen.manual_seed(seed + 1)
     state, obs = env.reset(arenas)
     state, obs, _ = run_acting(env, policy, state, obs, warmup, gen)
-    return env, policy, gen, state, obs
-
-
-def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
-            world: str = "stage1", params: str = DEFAULT_PARAMS,
-            seed: int = 0, policy_dtype: torch.dtype = torch.float32,
-            obs_dtype: torch.dtype | None = None, footprint: str | None = None,
-            disc_cull_k: int | None = None) -> dict:
-    """Robot-steps/s of the acting loop on the CUDA card."""
-    env, policy, gen, state, obs = _warm_start(arenas, warmup, world, params,
-                                               seed, policy_dtype, obs_dtype,
-                                               footprint, disc_cull_k)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -150,68 +137,18 @@ def measure(arenas: int = 128, steps: int = 256, warmup: int = 16,
             "card": card_label()}
 
 
-def profile(arenas: int = 128, steps: int = 20, warmup: int = 16,
-            world: str = "stage1", params: str = DEFAULT_PARAMS,
-            seed: int = 0, policy_dtype: torch.dtype = torch.float32,
-            obs_dtype: torch.dtype | None = None, footprint: str | None = None,
-            disc_cull_k: int | None = None) -> dict:
-    """Device time by kernel over ``steps`` acting steps (torch.profiler),
-    and the device's busy share of the window's wall time."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    env, policy, gen, state, obs = _warm_start(arenas, warmup, world, params,
-                                               seed, policy_dtype, obs_dtype,
-                                               footprint, disc_cull_k)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-        start.record()
-        run_acting(env, policy, state, obs, steps, gen)
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
-    kernels, launches = {}, 0
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.is_user_annotation):     # a span, not an op
-            kernels[e.name] = (kernels.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-            launches += 1
-    busy_ms = sum(kernels.values())
-    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    return {"world": world,
-            **_mode(policy_dtype, obs_dtype, footprint, disc_cull_k),
-            "arenas": arenas, "steps": steps,
-            "ms_per_step": window_ms / steps,
-            "device_ms_per_step": busy_ms / steps,
-            "device_idle_share": 1.0 - busy_ms / window_ms,
-            "device_ops_per_step": launches / steps,
-            "top_ms_per_step": {k[:80]: v / steps for k, v in ranked[:12]},
-            "device": torch.cuda.get_device_name(env.device),
-            "card": card_label()}
-
-
-def _trainer(arenas: int, world: str, seed: int, policy_dtype, obs_dtype):
-    """A trainer on the card with the world's preset
-    (``TrainConfig.for_world``) and its state after one warm-up update
-    (random init, as the JAX package's ``measure_training``)."""
-    trainer = Trainer(TrainConfig.for_world(
-        world, n_arenas=arenas, seed=seed, policy_dtype=policy_dtype,
-        obs_store_dtype=obs_dtype))
-    state, _ = trainer.train_step(trainer.init_state())
-    return trainer, state
-
-
 def measure_training(arenas: int = 32, repeats: int = 3,
                      world: str = "stage1", seed: int = 0,
                      policy_dtype: torch.dtype = torch.float32,
                      obs_dtype: torch.dtype | None = None) -> dict:
-    """Training robot-steps/s: the best of ``repeats`` updates (rollout +
-    GAE + PPO), each timed with CUDA events."""
-    trainer, state = _trainer(arenas, world, seed, policy_dtype, obs_dtype)
+    """Training robot-steps/s with the world's preset
+    (``TrainConfig.for_world``): the best of ``repeats`` updates (rollout +
+    GAE + PPO), each timed with CUDA events, after one warm-up update from
+    random init, as the JAX package's ``measure_training``."""
+    trainer = Trainer(TrainConfig.for_world(
+        world, n_arenas=arenas, seed=seed, policy_dtype=policy_dtype,
+        obs_store_dtype=obs_dtype))
+    state, _ = trainer.train_step(trainer.init_state())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
@@ -228,65 +165,6 @@ def measure_training(arenas: int = 32, repeats: int = 3,
             "arenas": arenas, "env_steps_per_update": steps,
             "update_ms": times, "device": torch.cuda.get_device_name(),
             "card": card_label()}
-
-
-#: Phases of an update, as marked by ``utils/profiling.span`` in
-#: train/trainer.py, algo/ppo.py and ops/trunk_cuda.py (TwinTrunks.backward);
-#: the acting step's spans inside ``rollout`` count as the rollout.  The rest
-#: of the backward runs on the autograd engine's threads, outside every
-#: range.
-TRAIN_PHASES = ("rollout", "gae", "ppo_forward", "twin_trunks_grads", "adam")
-
-
-def profile_training(arenas: int = 32, world: str = "stage1",
-                     seed: int = 0, policy_dtype: torch.dtype = torch.float32,
-                     obs_dtype: torch.dtype | None = None) -> dict:
-    """Device ms of one traced update by phase, and the device's idle share
-    of the update's wall time.
-
-    The trace holds each phase range twice: on the host, and on the device
-    as the span from the first to the last operation it launched.  All work
-    runs on one stream in launch order, so a device operation belongs to the
-    innermost phase span that contains its start; one inside none is the
-    rest of autograd (``autograd_other``)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    trainer, state = _trainer(arenas, world, seed, policy_dtype, obs_dtype)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-        start.record()
-        trainer.train_step(state)
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted(((e.time_range.start, e.time_range.end, e.name)
-                    for e in device if e.name in TRAIN_PHASES),
-                   key=lambda s: s[1] - s[0])
-    ops = [e for e in device if not e.is_user_annotation]
-    phases = dict.fromkeys((*TRAIN_PHASES, "autograd_other"), 0.0)
-    kernels = {}
-    for e in ops:
-        t0, ms = e.time_range.start, e.time_range.elapsed_us() / 1e3
-        phase = next((name for lo, hi, name in spans if lo <= t0 <= hi),
-                     "autograd_other")
-        phases[phase] += ms
-        key = f"{phase}: {e.name[:70]}"
-        total, count = kernels.get(key, (0.0, 0))
-        kernels[key] = (total + ms, count + 1)
-    busy_ms = sum(phases.values())
-    return {"world": world, **_mode(policy_dtype, obs_dtype),
-            "arenas": arenas, "update_ms": window_ms,
-            "device_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / window_ms,
-            "phase_device_ms": phases, "device_ops": len(ops),
-            "top_kernels_ms_launches": dict(sorted(
-                kernels.items(), key=lambda kv: -kv[1][0])[:12]),
-            "device": torch.cuda.get_device_name(), "card": card_label()}
 
 
 def scaling_rank(world: int, rank: int, init_url: str, arenas: int,
@@ -390,9 +268,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--world", default="stage1")
     ap.add_argument("--params", default=DEFAULT_PARAMS)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="trace the window and report device time by kernel "
-                         "(acting) or by phase (--train)")
     ap.add_argument("--train", action="store_true",
                     help="time training updates (random init, the "
                          "world's preset) instead of acting; --arenas "
@@ -428,7 +303,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.scaling:
         unused = [f"--{k.replace('_', '-')}" for k in (
-            "train", "world", "params", "seed", "profile", "repeats", "bf16",
+            "train", "world", "params", "seed", "repeats", "bf16",
             "obs_bf16", "f32", "footprint", "disc_cull")
             if getattr(args, k) != ap.get_default(k)]
         if unused:
@@ -444,16 +319,13 @@ def main(argv=None):
                  "on the box footprint with --world stage1_rect")
     if args.train:
         arenas = args.arenas or 32
-        out = (profile_training(arenas, args.world, args.seed, *dtypes)
-               if args.profile
-               else measure_training(arenas, args.repeats, args.world,
-                                     args.seed, *dtypes))
+        out = measure_training(arenas, args.repeats, args.world, args.seed,
+                               *dtypes)
         print(out.pop("card"))
     else:
-        run = profile if args.profile else measure
-        out = run(args.arenas or 128, args.steps, args.warmup, args.world,
-                  args.params, args.seed, *dtypes, args.footprint,
-                  args.disc_cull)
+        out = measure(args.arenas or 128, args.steps, args.warmup,
+                      args.world, args.params, args.seed, *dtypes,
+                      args.footprint, args.disc_cull)
     print(json.dumps(out))
 
 

@@ -12,8 +12,8 @@ rollout as in the JAX package: ``done`` cuts GAE there, they count in the
 advantage normalization, and they train with weight 0.  On the CUDA card
 the policy runs through the trunk forward kernel in the rollout and through
 the forward and backward kernels in the update; the env step runs the lidar
-kernel.  Phases are marked with ``utils/profiling.span`` so that
-``bench --train --profile`` and the benchmark can split the device time: each
+kernel.  Phases are marked with ``utils/profiling.span`` so that the
+benchmark and the ``--profile DIR`` traces can split the device time: each
 acting step is ``act_step``, its policy forward ``act_policy``; the first
 observation and the bootstrap stay directly in ``rollout``, so that span's
 device-side extent still runs from the first step to the bootstrap.

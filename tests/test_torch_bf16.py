@@ -12,7 +12,8 @@ holds the float32 rule it would hold in float32, except for rounding
 flips, which it counts: each must lie within one ulp, and together at most
 ``FLIP_SHARE`` of the elements (the reading beside each test).  The port's
 plain bf16 trunks are what the CPU runs; the kernels are held to them on
-the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+the card (``tests/test_torch_gpu.py``, by the gates of
+``tests/card_gates.py``).
 """
 import warnings
 
@@ -32,7 +33,7 @@ from rl_collision_avoidance_tpu.ops.trunk_pallas import (TrunkConfig,
                                                          stack_trunk_params)
 from rl_collision_avoidance_tpu.worlds import mini as jmini
 
-import chip_smoke
+from card_gates import BWD_TOL, trunk_grads_limits
 from rl_collision_avoidance_torch import bench, cli
 from rl_collision_avoidance_torch.algo import Batch, PPOConfig, ppo_update
 from rl_collision_avoidance_torch.engine.env import Env
@@ -107,12 +108,12 @@ def test_plain_bf16_trunks_match_pallas_default(setup):
     gt = torch.from_numpy(np.asarray(g16, np.float32)).to(BF16)
     act, crt = [w.detach() for w in act], [w.detach() for w in crt]
     got = trunk_cuda.twin_trunks_grads(x, act, crt, gt, "bf16")
-    # Each package's float32 gradient lies within chip_smoke.BWD_TOL of an
+    # Each package's float32 gradient lies within BWD_TOL of an
     # element's |terms| sum (plus the fc1 ReLUs near zero) of the exact
     # bf16-mode gradient, so the two within twice that; a rounding that
     # falls the other way (g2, g3, an activation) moves the terms it enters
     # by one ulp of one factor: within ULP of the |terms| sum, counted.
-    limits = chip_smoke.trunk_grads_limits(x, act, crt, gt, "bf16")
+    limits = trunk_grads_limits(x, act, crt, gt, "bf16")
     names = [f"{t}_{n}" for t in ("act", "crt") for n in
              ("fea_cv1.weight", "fea_cv1.bias", "fea_cv2.weight",
               "fea_cv2.bias", "fc1.weight", "fc1.bias")]
@@ -121,7 +122,7 @@ def test_plain_bf16_trunks_match_pallas_default(setup):
                                              *limits[t]):
             want = ref_g[name].numpy().astype(np.float64)
             diff = np.abs(mine_g.double().numpy() - want)
-            tight = 2 * (chip_smoke.BWD_TOL * scale + near).numpy()
+            tight = 2 * (BWD_TOL * scale + near).numpy()
             loose = tight + ULP * scale.numpy()
             assert (diff <= loose).all(), name
             assert (diff > tight).sum() <= FLIP_SHARE * diff.size, name

@@ -80,7 +80,7 @@ def test_resume_is_bit_equal_to_an_unbroken_run(tmp_path, world):
 def test_restore_maps_onto_the_device(tmp_path):
     """restore maps every tensor onto the device it is given (here the
     meta device stands for the card); the generator states stay bytes, and
-    load_state_dict leaves Adam's step counts on the host (chip_smoke.py's
+    load_state_dict leaves Adam's step counts on the host (the card tests'
     round trip restores onto the card)."""
     tr = _trainer()
     state, _ = tr.train_step(tr.init_state())

@@ -1,12 +1,22 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels and paths against their plain PyTorch versions,
+on the card.
 
+Each kernel is held at every world, batch and precision a path of the port
+gives it (``PATHS``), and each path of the curriculum runs on the card at
+its presets' widths, cut in depth, by the gates of ``tests/card_gates.py``.
 Marked ``gpu``; every test skips where no CUDA card is visible.  This file
 imports no JAX, so it also runs on a machine that has none:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import copy
+import csv
 import dataclasses
 import gc
+import inspect
+import json
+import math
+import shutil
 import weakref
 from pathlib import Path
 
@@ -14,21 +24,126 @@ import numpy as np
 import pytest
 import torch
 
+from card_gates import (BF16_ULP, EVAL_MIN_SUCCESS, GRAD_ATOL, GRAD_NORM,
+                        LIDAR_ATOL, MLP_ATOL, MP_MIN_GOAL, POLICY_ATOL,
+                        RECT_MIN_SUCCESS, RECT_RING, S1_MIN_GOAL, S2_MIN_GOAL,
+                        check_features, check_grads, check_sass,
+                        compare_minibatch_grads, env_launches, flip_check,
+                        read_counts, read_sass, reset_counts,
+                        sass_mma_counts, training_launches,
+                        trunk_grads_limits)
+from rl_collision_avoidance_torch import bench
 from rl_collision_avoidance_torch.algo import PPOConfig
 from rl_collision_avoidance_torch.engine.env import Env, EnvState
-from rl_collision_avoidance_torch.models import CNNPolicy
+from rl_collision_avoidance_torch.examples import (make_results,
+                                                   train_curriculum)
+from rl_collision_avoidance_torch.models import (CNNPolicy, MLPPolicy,
+                                                 load_policy)
 from rl_collision_avoidance_torch.ops import env_cuda, lidar_cuda, trunk_cuda
 from rl_collision_avoidance_torch.train import TrainConfig, Trainer
 from rl_collision_avoidance_torch.utils import graphs
-from rl_collision_avoidance_torch.worlds import (circle, circle_train,
+from rl_collision_avoidance_torch.utils.params import (jax_params_to_torch,
+                                                       load_jax_npz)
+from rl_collision_avoidance_torch.worlds import (circle, compile_world,
                                                  get_world, mini, stage1,
-                                                 stage1_rect, stage2)
+                                                 stage2)
+from torch_dist_worker import run_ranks
 
 pytestmark = pytest.mark.gpu
 
 RESULTS = Path(__file__).resolve().parents[1] / "results"
-LIDAR_ATOL = 1e-5
-TRUNK_TOL = 1e-4  # absolute and relative; a 4096-long f32 sum in another order
+PARAMS = RESULTS / "stage1_params.npz"
+CIRCLE_PARAMS = RESULTS / "circle_ft_params.npz"
+SEED = 0
+# Arenas of the paths, as their presets and entry points set them.
+ACT_ARENAS = inspect.signature(bench.measure).parameters["arenas"].default
+TRAIN_ARENAS = make_results.ARENAS["stage1"]
+S2_ARENAS = make_results.ARENAS["stage2"]
+FT_ARENAS = make_results.ARENAS["circle_ft"]
+EVAL_ARENAS = make_results.EVAL_ARENAS
+SELECT_ARENAS = make_results.SELECT_ARENAS
+CURRICULUM_ARENAS = inspect.signature(
+    train_curriculum.curriculum).parameters["n_arenas"].default
+RANKS = 2             # gloo ranks sharing the card
+# The box footprint's committed evals (results/circle_eval_rect.json): the
+# ring, the ring culled to the RECT_CULL_K nearest, RECT_ARENAS at 0.3 m.
+RECT_CULL_K = 12
+RECT_NOISE = 0.3
+RECT_ARENAS = json.loads((RESULTS / "circle_eval_rect.json").read_text())[
+    "rect_jitter_0.3m"]["n_arenas"]
+S1_BATCH = TrainConfig.stage1(n_arenas=TRAIN_ARENAS).ppo.batch_size
+S2_BATCH = TrainConfig.stage2(n_arenas=S2_ARENAS).ppo.batch_size
+FT_BATCH = TrainConfig.circle_ft(n_arenas=FT_ARENAS).ppo.batch_size
+#: The weights each world's checks and paths use: stage 2 warm-starts from
+#: stage 1, the circle eval and the fine-tune use the fine-tuned policy.
+WORLD_PARAMS = {"stage1": PARAMS, "stage2": PARAMS, "stage1_rect": PARAMS,
+                "circle": CIRCLE_PARAMS, "circle_train": CIRCLE_PARAMS,
+                "circle_12": CIRCLE_PARAMS, "circle_rect": CIRCLE_PARAMS}
+#: (precision, scans dtype) modes of a path: float32; bf16 on bf16 scans
+#: (--bf16 --obs-bf16); the fine-tune's bf16 also on float32 scans (--bf16
+#: alone, make_results' circle_ft_bf16_f32obs).
+F32 = (("float32", torch.float32),)
+BOTH = F32 + (("bf16", torch.bfloat16),)
+FT_MODES = BOTH + (("bf16", torch.float32),)
+#: The port's paths on the card: (world, arenas, PPO minibatch or None,
+#: modes).  Each gives the lidar kernel (walls-only on the box footprint),
+#: the env-step kernels (disc worlds) and the trunk forward its arenas'
+#: robots; a training path gives the forward and the backward its minibatch.
+PATHS = [("stage1", ACT_ARENAS, None, BOTH),       # the acting slice
+         ("stage1", TRAIN_ARENAS, S1_BATCH, BOTH),
+         ("stage1", TRAIN_ARENAS // RANKS, S1_BATCH // RANKS, BOTH),  # a rank
+         ("stage1_rect", TRAIN_ARENAS, S1_BATCH, F32),
+         ("stage2", S2_ARENAS, S2_BATCH, BOTH),
+         ("circle_train", FT_ARENAS, FT_BATCH, FT_MODES),
+         ("circle", 1, None, F32),                  # the ring
+         ("circle", EVAL_ARENAS, None, F32),
+         ("circle", SELECT_ARENAS, None, F32),      # the fine-tune's selection
+         ("circle", CURRICULUM_ARENAS[2], None, F32),
+         ("circle_12", 1, None, F32),               # the sweep's 12-robot ring
+         ("circle_rect", 1, None, F32),
+         ("circle_rect", RECT_ARENAS, None, F32)]
+RECT_WORLDS = ("stage1_rect", "circle_rect")
+
+
+def _spec(world: str):
+    """The WorldSpec of a world of PATHS: ``circle_12`` is the circle with 12
+    robots on its 25 m ring, ``circle_rect`` the circle with the box
+    footprint, any other ``get_world``'s."""
+    if world == "circle_12":
+        return circle(n_robots=12)
+    if world == "circle_rect":
+        return dataclasses.replace(circle(), footprint="rect")
+    return get_world(world)
+
+
+N_ROBOTS = {w: _spec(w).n_robots for w in dict.fromkeys(p[0] for p in PATHS)}
+#: (world, arenas) of the disc paths (lidar_obs, the env-step kernels) and of
+#: the box footprint's (lidar_obs_walls).
+DISC_PATHS = list(dict.fromkeys((w, a) for w, a, _, _ in PATHS
+                                if w not in RECT_WORLDS))
+WALLS_PATHS = list(dict.fromkeys((w, a) for w, a, _, _ in PATHS
+                                 if w in RECT_WORLDS))
+#: (world, batch, precision, scans dtype) of the trunk forward and backward.
+FWD_PATHS = list(dict.fromkeys(
+    (w, b, p, d) for w, a, mb, modes in PATHS for p, d in modes
+    for b in (a * N_ROBOTS[w], mb) if b))
+BWD_PATHS = list(dict.fromkeys((w, mb, p, d) for w, _, mb, modes in PATHS
+                               if mb for p, d in modes))
+#: Every (kernel, batch, precision) held above: a path launches no other.
+CHECKED = ({(k, a * N_ROBOTS[w], "float32") for w, a in DISC_PATHS
+            for k in ("lidar_obs", "env_physics", "env_reset")}
+           | {("lidar_obs_walls", a * N_ROBOTS[w], "float32")
+              for w, a in WALLS_PATHS}
+           | {("twin_trunks", b, p) for _, b, p, _ in FWD_PATHS}
+           | {("twin_trunks_grads", b, p) for _, b, p, _ in BWD_PATHS})
+
+
+def _ids(value):
+    if isinstance(value, torch.dtype):
+        return str(value).removeprefix("torch.")
+    if isinstance(value, tuple):      # a random source: frames, beams, seed
+        return "random-{}x{}-{}".format(*value)
+    return None
 
 
 @pytest.fixture
@@ -44,19 +159,51 @@ def _lidar_args(env):
             env.spec.robot_radius, env.spec.max_range)
 
 
-@pytest.mark.parametrize("make_spec,arenas", [(stage1, 16), (mini, 5),
-                                              (stage2, 16), (circle, 1),
-                                              (circle, 32),
-                                              (circle_train, 16)])
-def test_lidar_kernel_matches_plain(cuda, make_spec, arenas):
-    env = Env(make_spec(), device=cuda, seed=3)
-    pose, _ = env.sample_pose_goal(arenas)
-    before = lidar_cuda.launches
+def _test_poses(env, arenas: int):
+    """Seeded poses of ``arenas`` arenas: the world's reset poses, in stage
+    1 with one robot 0.3-0.5 m from the east wall facing it and a pair
+    0.5-0.7 m apart an arena, in the circle worlds' further arenas drawn in
+    towards the centre down to 4 m with random headings; with more than one
+    arena of at least 24 robots, the last one the culling rules' edge cases
+    (lidar_cuda.adversarial_poses)."""
+    spec, g, dev = env.spec, env.generator, env.device
+    pose = env.sample_pose_goal(arenas)[0]
+    if spec.name.startswith("stage1"):
+        u = torch.rand((arenas, 4), generator=g, device=dev)
+        pose[:, 0, 0] = 9.6 - 0.3 - 0.2 * u[:, 0]          # wall at x = 9.6
+        pose[:, 0, 1] = 2.0 * u[:, 1] - 1.0
+        pose[:, 0, 2] = 0.5 * u[:, 2] - 0.25
+        gap, ang = 0.5 + 0.2 * u[:, 3], 2 * math.pi * u[:, 2]
+        pose[:, 2, 0] = pose[:, 1, 0] + gap * torch.cos(ang)
+        pose[:, 2, 1] = pose[:, 1, 1] + gap * torch.sin(ang)
+    if spec.name.startswith("circle") and arenas > 1:
+        scale = torch.linspace(1.0, 0.16, arenas, device=dev)
+        pose[..., :2] *= scale[:, None, None]
+        pose[1:, :, 2] = 2 * math.pi * torch.rand(pose[1:, :, 2].shape,
+                                                  generator=g, device=dev)
+    if arenas > 1 and spec.n_robots >= 24:
+        pose[-1] = torch.from_numpy(lidar_cuda.adversarial_poses(
+            spec, spec.n_robots, seed=SEED))[0].to(dev)
+    return pose.contiguous()
+
+
+@pytest.mark.parametrize("world,arenas", list(dict.fromkeys([
+    ("stage1", 16), ("mini", 5), ("stage2", 16), ("circle", 1),
+    ("circle", 32), ("circle_train", 16), *DISC_PATHS])))
+def test_lidar_kernel_matches_plain(cuda, world, arenas):
+    """At each world and arena count of the disc paths (and mini's 64
+    beams), on the world's test poses: one launch counted at its batch,
+    finite and within LIDAR_ATOL of the plain version."""
+    env = Env(_spec(world), device=cuda, seed=3)
+    pose = _test_poses(env, arenas)
+    key = ("lidar_obs", arenas * env.n_robots, "float32")
+    before = lidar_cuda.launches_by_mode[key]
     got = lidar_cuda.lidar_obs(pose, *_lidar_args(env))
-    assert lidar_cuda.launches == before + 1
+    assert lidar_cuda.launches_by_mode[key] == before + 1
     want = lidar_cuda.lidar_obs_plain(pose, *_lidar_args(env))
     torch.cuda.synchronize()
     assert got.shape == (arenas, env.n_robots, env.spec.n_beams)
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
 
 
@@ -83,23 +230,17 @@ def test_lidar_kernel_on_adversarial_arena(cuda, make_spec, n):
     torch.testing.assert_close(got, want, atol=LIDAR_ATOL, rtol=0)
 
 
-def _rect_circle():
-    return dataclasses.replace(circle(), footprint="rect")
-
-
-@pytest.mark.parametrize("make_spec,arenas", [(stage1_rect, 32),
-                                              (_rect_circle, 1),
-                                              (_rect_circle, 16)])
-def test_lidar_walls_only_kernel_matches_plain(cuda, make_spec, arenas):
-    """The walls-only mode (discs=False) against lidar_obs_plain(discs=
-    False) on seeded poses with an adversarial_poses arena last: within
-    LIDAR_ATOL, bit-equal over two launches, counted as walls-only."""
-    env = Env(make_spec(), device=cuda, seed=5)
+@pytest.mark.parametrize("world,arenas", WALLS_PATHS)
+def test_lidar_walls_only_kernel_matches_plain(cuda, world, arenas):
+    """The walls-only mode (discs=False) at the box footprint's paths
+    against lidar_obs_plain(discs=False) on the world's test poses with an
+    adversarial_poses arena last: within LIDAR_ATOL, bit-equal over two
+    launches, counted as walls-only."""
+    env = Env(_spec(world), device=cuda, seed=5)
     s = env.spec
-    pose, _ = env.sample_pose_goal(arenas)
+    pose = _test_poses(env, arenas)
     pose[-1] = torch.from_numpy(lidar_cuda.adversarial_poses(
         s, s.n_robots, seed=arenas))[0].to(cuda)
-    pose = pose.contiguous()
     key = ("lidar_obs_walls", arenas * s.n_robots, "float32")
     before = lidar_cuda.launches_by_mode[key]
     got = lidar_cuda.lidar_obs(pose, *_lidar_args(env), discs=False)
@@ -113,15 +254,15 @@ def test_lidar_walls_only_kernel_matches_plain(cuda, make_spec, arenas):
     assert (got >= full).all() and (got > full).any()   # no disc
 
 
-@pytest.mark.parametrize("make_spec,kw", [(stage1_rect, {}),
-                                          (_rect_circle, {}),
-                                          (_rect_circle, {"disc_cull_k": 12})])
-def test_rect_env_kernel_path_matches_plain_path(cuda, make_spec, kw):
+@pytest.mark.parametrize("world,kw", [
+    ("stage1_rect", {}), ("circle_rect", {}),
+    ("circle_rect", {"disc_cull_k": RECT_CULL_K})])
+def test_rect_env_kernel_path_matches_plain_path(cuda, world, kw):
     """Five steps of the box footprint through the walls-only kernel and
     the plain path on the card, from the same state, actions and reset
     draws: poses, rewards and flags equal, scans within LIDAR_ATOL."""
-    env = Env(make_spec(), device=cuda, seed=0, **kw)
-    plain = Env(make_spec(), device=cuda, use_kernels=False, **kw)
+    env = Env(_spec(world), device=cuda, seed=0, **kw)
+    plain = Env(_spec(world), device=cuda, use_kernels=False, **kw)
     assert env.walls_only
     n = env.n_robots
     pose, goal = env.sample_pose_goal(4)
@@ -184,31 +325,122 @@ def test_lidar_kernel_rejects_bad_input(cuda):
                              *args[5:])
 
 
-@pytest.mark.parametrize("batch", [1, 37, 50, 704, 768, 1000, 3072, 8192,
-                                   10240])
-def test_trunk_kernel_matches_plain(cuda, batch):
-    torch.manual_seed(batch)
-    policy = CNNPolicy().to(cuda)
-    scans = torch.rand(batch, 3, 512, device=cuda) - 0.5
-    act, crt = policy.trunk_weights("act"), policy.trunk_weights("crt")
-    with torch.no_grad():
-        before = trunk_cuda.launches
-        got = trunk_cuda.twin_trunks(scans, act, crt)
-        assert trunk_cuda.launches == before + 1
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt)
+def _inputs(cuda, source, batch, scans_dtype=torch.float32,
+            precision="float32", steps=0):
+    """``batch`` scans in ``scans_dtype``, the two trunks' weights and a
+    cotangent in ``precision``.  ``source`` a world of PATHS: its trained
+    policy's weights and the world's scans at its reset (three equal
+    frames) or after ``steps`` acting steps of that policy.  ``source``
+    (frames, beams, seed): random weights and scans from that seed."""
+    if isinstance(source, str):
+        spec = _spec(source)
+        policy = load_policy(WORLD_PARAMS[source], device=cuda)
+        env = Env(spec, device=cuda, seed=SEED + 1 + (steps > 0),
+                  obs_dtype=scans_dtype)
+        state, obs = env.reset(-(-batch // spec.n_robots))
+        gen = torch.Generator(device=cuda).manual_seed(SEED + 2)
+        if steps:
+            _, obs, _ = bench.run_acting(env, policy, state, obs, steps, gen)
+        scans = obs.scans.reshape(-1, spec.laser_frames,
+                                  spec.n_beams)[:batch].contiguous()
+        g = torch.randn((2, batch, 256), generator=gen, device=cuda)
+    else:
+        frames, beams, seed = source
+        torch.manual_seed(seed)
+        policy = CNNPolicy(frames=frames, beams=beams).to(cuda)
+        scans = (torch.rand(batch, frames, beams, device=cuda) - 0.5).to(
+            scans_dtype)
+        g = torch.randn(2, batch, 256, device=cuda)
+    return (scans, *([w.detach() for w in policy.trunk_weights(t)]
+                     for t in ("act", "crt")),
+            g.to(trunk_cuda.PRECISIONS[precision]))
+
+
+def _launch(fn, key):
+    """``fn()``, a trunk wrapper's launch at ``key`` (kernel, batch,
+    precision), twice: it is counted once a call, the two are bit-equal (no
+    float atomics), and the rise of the caching allocator's peak over the
+    first holds the workspace it allocated."""
+    before = trunk_cuda.launches_by_mode[key]
+    trunk_cuda.workspace_bytes.pop(key, None)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=TRUNK_TOL, rtol=TRUNK_TOL)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()    # a fault inside the kernel surfaces here
+    assert (torch.cuda.max_memory_allocated() - base
+            >= trunk_cuda.workspace_bytes[key])
+    flat = lambda o: o if isinstance(o, torch.Tensor) else [*o[0], *o[1]]
+    assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(fn())))
+    assert trunk_cuda.launches_by_mode[key] == before + 2
+    return out
 
 
-def test_trunk_kernel_is_deterministic(cuda):
-    """No float atomics in the split-K sums: two launches agree bit for
-    bit, at a batch whose fc1 is split (768) and one whose is not."""
-    for batch in (768, 4099):
-        scans, act, crt, _ = _bwd_inputs(cuda, batch, seed=3)
-        with torch.no_grad():
-            first = trunk_cuda.twin_trunks(scans, act, crt)
-            second = trunk_cuda.twin_trunks(scans, act, crt)
-        assert torch.equal(first, second)
+def _random(seed, frames=3, beams=512):
+    return (frames, beams, seed)
+
+
+#: (frames, beams, batch) of random bf16 cases on the tensor cores
+#: (csrc/trunk_mma.cuh, trunk_conv_mma.cuh, conv_bwd_mma_kernel): ragged
+#: batches against the 128-row tiles, beam counts whose conv2 channels
+#: split or share the 128-column N tiles (64: L2 = 16; 720: L2 = 180),
+#: conv1's one or two k16 steps (1 and 3 frames: 5 and 15 taps; 6 frames:
+#: 30), and the bf16 fine-tune's rollout and minibatch (800: fc1's K split
+#: in 9; 10,240: split in 3, 80 M tiles of db2).
+TENSOR_CORE_SHAPES = [(3, 512, 33), (3, 512, 768), (3, 512, 1000),
+                      (3, 512, 3072), (3, 512, 32768), (3, 512, 800),
+                      (3, 512, 10240), (1, 64, 33),
+                      (6, 64, 1000), (1, 720, 768), (6, 720, 1000),
+                      (3, 720, 3072), (6, 512, 32768)]
+#: Random cases of both kernels (source, batch, precision, scans dtype): 1-6
+#: frames and beam counts that are multiples of 16 (the mini world has 64
+#: beams), and the tensor-core shapes on float32 and bf16 scans.
+RANDOM_BOTH = [
+    *((_random(f * b, f, b), 45, "float32", torch.float32)
+      for f, b in ((3, 64), (1, 16), (6, 128))),
+    *((_random(f + b + n, f, b), n, "bf16", d) for f, b, n in
+      TENSOR_CORE_SHAPES for d in (torch.float32, torch.bfloat16))]
+#: The forward's: float32 at batches ragged against the tiles and the
+#: split-K ranges (768: fc1 split; 4,099: not), on bf16 scans (--obs-bf16
+#: without --bf16), and bf16 at the mini world's rollout (2 arenas x 4
+#: robots) and minibatch, stage 1's and stage 2's shapes.
+RANDOM_FWD = list(dict.fromkeys([
+    *((_random(n), n, "float32", torch.float32)
+      for n in (1, 37, 50, 704, 768, 1000, 3072, 4099, 8192, 10240)),
+    *((_random(0), n, "float32", torch.bfloat16) for n in (37, 768, 3072)),
+    *((_random(0, f, b), n, "bf16", d)
+      for f, b, n in ((3, 64, 8), (3, 64, 256), (3, 512, 768),
+                      (3, 512, 3072), (3, 512, 32768), (3, 512, 704),
+                      (3, 512, 8192))
+      for d in (torch.float32, torch.bfloat16)),
+    *RANDOM_BOTH]))
+#: The backward's: float32 at batches ragged against the 128-sample tiles,
+#: the split-K ranges and the conv blocks, and both modes on bf16 scans.
+RANDOM_BWD = [*((_random(0), n, "float32", torch.float32)
+                for n in (37, 50, 704, 1000, 4099, 8192, 10240)),
+              *((_random(1, f, b), n, p, torch.bfloat16)
+                for f, b, n in ((3, 64, 256), (3, 512, 37), (3, 512, 8192),
+                                (3, 512, 32768))
+                for p in ("float32", "bf16")),
+              *RANDOM_BOTH]
+
+
+@pytest.mark.parametrize("source,batch,precision,scans_dtype",
+                         RANDOM_FWD + FWD_PATHS, ids=_ids)
+def test_trunk_kernel_matches_plain(cuda, source, batch, precision,
+                                    scans_dtype):
+    """The forward kernel against its plain version on random weights and
+    scans, and at each world, batch and mode of the paths on the world's
+    scans with its trained weights: float32 within TRUNK_ATOL + TRUNK_RTOL
+    of it, bf16 by the rounding-flip rule (check_features)."""
+    scans, act, crt, _ = _inputs(cuda, source, batch, scans_dtype)
+    with torch.no_grad():
+        got = _launch(lambda: trunk_cuda.twin_trunks(scans, act, crt,
+                                                     precision),
+                      ("twin_trunks", batch, precision))
+        want = trunk_cuda.twin_trunks_plain(scans, act, crt, precision)
+    assert got.dtype == trunk_cuda.PRECISIONS[precision]
+    check_features(got, want, precision, f"{source} B = {batch}")
 
 
 @pytest.mark.parametrize("batch", [1, 37, 50, 704, 768, 800, 1600, 3072,
@@ -244,21 +476,11 @@ def test_trunk_kernel_refuses_autograd(cuda):
                                policy.trunk_weights("crt"))
 
 
-def _bwd_inputs(cuda, batch, seed=0):
-    torch.manual_seed(seed)
-    policy = CNNPolicy().to(cuda)
-    scans = torch.rand(batch, 3, 512, device=cuda) - 0.5
-    g = torch.randn(2, batch, 256, device=cuda)
-    act = [w.detach() for w in policy.trunk_weights("act")]
-    crt = [w.detach() for w in policy.trunk_weights("crt")]
-    return scans, act, crt, g
-
-
 @pytest.mark.parametrize("batch", [37, 1000])
 def test_trunk_bwd_kernel_matches_plain(cuda, batch):
     """Against the plain version in float64; each leaf at 1e-5 of its
     largest value (its batch sums run in another order than cuDNN's)."""
-    scans, act, crt, g = _bwd_inputs(cuda, batch)
+    scans, act, crt, g = _inputs(cuda, _random(0), batch)
     before = trunk_cuda.bwd_launches
     got = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
     assert trunk_cuda.bwd_launches == before + 1
@@ -274,69 +496,27 @@ def test_trunk_bwd_kernel_matches_plain(cuda, batch):
                                    msg=name)
 
 
-@pytest.mark.parametrize("batch", [37, 50, 704, 1000, 4099, 8192, 10240])
-def test_trunk_bwd_kernel_within_rounding_limit(cuda, batch):
-    """Against the plain version in float64 at batches ragged against the
-    128-sample tiles, the split-K ranges and the conv blocks, held as
-    chip_smoke.py holds B = 32,768: each gradient element within BWD_TOL of
-    the sum of its terms' absolute values, plus the whole terms behind fc1
-    ReLUs that float32 may turn either way (at B = 4,099 one such flip moves
-    a conv gradient by ~1e-3 of its largest value, far above 1e-5 of it, in
-    the kernel and not in cuBLAS, whose sums round otherwise)."""
-    import chip_smoke
-
-    scans, act, crt, g = _bwd_inputs(cuda, batch)
-    got = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
+@pytest.mark.parametrize("source,batch,precision,scans_dtype",
+                         RANDOM_BWD + BWD_PATHS, ids=_ids)
+def test_trunk_bwd_kernel_within_rounding_limit(cuda, source, batch,
+                                                precision, scans_dtype):
+    """Against the plain version in float64 on random weights and scans,
+    and at each minibatch and mode of the training paths on the world's
+    scans after two acting steps with its trained weights: within the
+    float32 rounding limit of check_grads (at B = 4,099 an fc1 ReLU that
+    float32 turns the other way moves a conv gradient by ~1e-3 of its
+    largest value in the kernel and not in cuBLAS), bf16 by its flip rule."""
+    scans, act, crt, g = _inputs(cuda, source, batch, scans_dtype, precision,
+                                 steps=2)
+    got = _launch(lambda: trunk_cuda.twin_trunks_grads(scans, act, crt, g,
+                                                       precision),
+                  ("twin_trunks_grads", batch, precision))
     f64 = lambda ws: [w.double() for w in ws]
     want = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
-                                              f64(crt), g.double())
-    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g)
-    torch.cuda.synchronize()
-    for t in range(2):
-        for name, a, b, scale, near in zip(trunk_cuda.WEIGHT_NAMES, got[t],
-                                           want[t], *limits[t]):
-            limit = chip_smoke.BWD_TOL * scale + near
-            assert bool(torch.isfinite(a).all()), name
-            assert bool(((a.double() - b).abs() <= limit).all()), (t, name)
-
-
-@pytest.mark.parametrize("frames,beams", [(3, 64), (1, 16), (6, 128)])
-def test_trunk_kernels_other_scan_shapes(cuda, frames, beams):
-    """The kernels take 1-6 frames and beam counts that are multiples of 16
-    (the mini world has 64 beams): forward and backward against the plain
-    versions, with the tolerances of the stage-1 tests above."""
-    import chip_smoke
-
-    torch.manual_seed(frames * beams)
-    policy = CNNPolicy(frames=frames, beams=beams).to(cuda)
-    scans = torch.rand(45, frames, beams, device=cuda) - 0.5
-    g = torch.randn(2, 45, 256, device=cuda)
-    act = [w.detach() for w in policy.trunk_weights("act")]
-    crt = [w.detach() for w in policy.trunk_weights("crt")]
-    with torch.no_grad():
-        got = trunk_cuda.twin_trunks(scans, act, crt)
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt)
-    torch.testing.assert_close(got, want, atol=TRUNK_TOL, rtol=TRUNK_TOL)
-    grads = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
-    f64 = lambda ws: [w.double() for w in ws]
-    ref = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
-                                             f64(crt), g.double())
-    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g)
-    torch.cuda.synchronize()
-    for t in range(2):
-        for name, a, b, scale, near in zip(trunk_cuda.WEIGHT_NAMES, grads[t],
-                                           ref[t], *limits[t]):
-            assert bool(((a.double() - b).abs()
-                         <= chip_smoke.BWD_TOL * scale + near).all()), name
-
-
-def test_trunk_bwd_kernel_is_deterministic(cuda):
-    """No float atomics: two launches on the same inputs agree bit for bit."""
-    scans, act, crt, g = _bwd_inputs(cuda, 1000, seed=1)
-    first = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
-    second = trunk_cuda.twin_trunks_grads(scans, act, crt, g)
-    for a, b in zip((*first[0], *first[1]), (*second[0], *second[1])):
-        assert torch.equal(a, b)
+                                              f64(crt), g.double(), precision)
+    check_grads([*got[0], *got[1]], [*want[0], *want[1]],
+                trunk_grads_limits(scans, act, crt, g, precision), precision,
+                f"{source} B = {batch}")
 
 
 def test_policy_grads_through_kernels_match_plain_path(cuda):
@@ -421,34 +601,39 @@ def _edge_actions(act, arena: int):
 #: worlds with their reset modes (stage 1 per robot, stage 2 and
 #: circle_train by group, circle never), with the tests' reset draws and
 #: with the env's own generator (the same seed on both paths, so the
-#: same draws), and bf16 scans.
-ENV_CASES = [(stage1, 8, True, None), (stage1, 8, False, None),
-             (stage2, 4, True, None), (stage2, 4, False, None),
-             (circle, 4, True, None), (circle_train, 3, True, None),
-             (circle_train, 3, False, None),
-             (stage1, 4, False, torch.bfloat16)]
+#: same draws), and bf16 scans; then every disc path's world and arenas.
+ENV_CASES = list(dict.fromkeys([
+    ("stage1", 8, True, None), ("stage1", 8, False, None),
+    ("stage2", 4, True, None), ("stage2", 4, False, None),
+    ("circle", 4, True, None), ("circle_train", 3, True, None),
+    ("circle_train", 3, False, None), ("stage1", 4, False, torch.bfloat16),
+    *((w, a, True, None) for w, a in DISC_PATHS)]))
 
 
-@pytest.mark.parametrize("make_spec,arenas,inject,obs_dtype", ENV_CASES)
-def test_env_kernel_path_matches_plain_path(cuda, make_spec, arenas, inject,
+@pytest.mark.parametrize("world,arenas,inject,obs_dtype", ENV_CASES,
+                         ids=_ids)
+def test_env_kernel_path_matches_plain_path(cuda, world, arenas, inject,
                                             obs_dtype):
     """240 chained steps of the kernel path (``ops/env_cuda.py``) and of
-    ``use_kernels=False`` on the card from the same start, each path on its
-    own states: every bool and int field equal and every float field of
-    the env step bit-equal at every step (the scans, from the lidar kernel
-    and its plain version, within LIDAR_ATOL, and bf16 scans within one
-    bf16 ulp more).  Actions run out of their
-    bounds; every 40 steps the last arena gets robots on the thresholds
-    (``_on_the_edges``), and every 60 steps the first arena times out as a
-    whole, so that stage 2's and circle_train's groups reset.  The kernel
+    ``use_kernels=False`` on the card from the world's test poses, each
+    path on its own states: every bool and int field equal and every float
+    field of the env step bit-equal at every step (the scans, from the
+    lidar kernel and its plain version, within LIDAR_ATOL, and bf16 scans
+    within one bf16 ulp more).  Actions run out of their bounds; every 40
+    steps the last arena gets robots on the thresholds (``_on_the_edges``),
+    and every 60 steps the first arena times out as a whole, so that stage
+    2's and circle_train's groups reset.  The kernel
     path leaves its input state as it was."""
-    env = Env(make_spec(), device=cuda, seed=0, obs_dtype=obs_dtype)
-    plain = Env(make_spec(), device=cuda, seed=0, use_kernels=False,
+    spec = _spec(world)
+    env = Env(spec, device=cuda, seed=0, obs_dtype=obs_dtype)
+    plain = Env(spec, device=cuda, seed=0, use_kernels=False,
                 obs_dtype=obs_dtype)
     assert env._kernels is not None and plain._kernels is None
     n = env.n_robots
-    state, _ = env.reset(arenas)
-    pstate, _ = plain.reset(arenas)
+    poser = Env(spec, device=cuda, seed=0)  # leaves the two generators alike
+    pose, goal = _test_poses(poser, arenas), poser.sample_pose_goal(arenas)[1]
+    state, _ = env.reset(arenas, pose, goal)
+    pstate, _ = plain.reset(arenas, pose.clone(), goal.clone())
     g = torch.Generator(device=cuda).manual_seed(1)
     counts = env_cuda.launches_by_mode.copy()
     resets = 0
@@ -476,7 +661,7 @@ def test_env_kernel_path_matches_plain_path(cuda, make_spec, arenas, inject,
             if k in ("state.scan_hist", "obs.scans"):
                 # the two lidars agree within LIDAR_ATOL in float32; bf16
                 # scans may round such a pair one bf16 ulp apart
-                ulp = 2.0 ** -7 if obs_dtype == torch.bfloat16 else 0.0
+                ulp = BF16_ULP if obs_dtype == torch.bfloat16 else 0.0
                 assert bool(((v.float() - w.float()).abs() <= LIDAR_ATOL
                              + ulp * w.float().abs()).all()), k
             else:
@@ -486,7 +671,7 @@ def test_env_kernel_path_matches_plain_path(cuda, make_spec, arenas, inject,
                          for out in (got, want))
         resets += int((state.step == 0).sum())
     torch.cuda.synchronize()
-    fixed = make_spec().reset_mode.name == "FIXED_TABLES"
+    fixed = spec.reset_mode.name == "FIXED_TABLES"
     robots = arenas * n
     assert env_cuda.launches_by_mode["env_physics", robots, "float32"] \
         - counts["env_physics", robots, "float32"] == 240
@@ -495,133 +680,15 @@ def test_env_kernel_path_matches_plain_path(cuda, make_spec, arenas, inject,
     assert fixed or resets > 0
 
 
-def test_training_update_on_the_card(cuda):
-    """One stage-1 update (2 arenas, horizon 16: 768 samples, 3 minibatches
-    x 2 epochs) through all three kernels, with finite losses."""
-    tr = Trainer(TrainConfig.stage1(n_arenas=2, horizon=16,
-                                    ppo=PPOConfig(batch_size=256)),
-                 device=cuda)
-    state = tr.init_state()
-    before = [p.detach().clone() for p in state.policy.parameters()]
-    counts = (lidar_cuda.launches, trunk_cuda.launches,
-              trunk_cuda.bwd_launches, env_cuda.launches, graphs.captures,
-              graphs.replays)
-    state, m = tr.train_step(state)
-    assert lidar_cuda.launches - counts[0] == 16
-    assert env_cuda.launches - counts[3] == 2 * 16   # physics and reset
-    # the acting step: one capture, after its warm-up runs, and 16 replays,
-    # each launching the forward; then the bootstrap and PPO
-    assert (graphs.captures - counts[4], graphs.replays - counts[5]) == (1, 16)
-    assert trunk_cuda.launches - counts[1] == graphs.WARMUP + 16 + 1 + 6
-    assert trunk_cuda.bwd_launches - counts[2] == 6
-    for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
-        assert torch.isfinite(torch.tensor(m[k])), k
-    assert max(float((p.detach() - q).abs().max()) for p, q in
-               zip(state.policy.parameters(), before)) > 0
-
-
 # ---------------------------------------------------------------------------
-# bf16 mode (precision="bf16"), held as chip_smoke.py holds it: features and
-# gradients within the float32 rule but for counted bf16 rounding flips, each
-# within one bf16 ulp (chip_smoke.flip_check)
+# bf16 mode (precision="bf16"; its kernels against their plain versions in
+# the two trunk tests above)
 # ---------------------------------------------------------------------------
-
-#: (frames, beams, batch): the mini world's rollout (2 arenas x 4 robots)
-#: and minibatch, stage 1's rollout, acting and minibatch at 32 arenas, and
-#: stage 2's rollout and minibatch at 16 arenas.
-BF16_SHAPES = [(3, 64, 8), (3, 64, 256), (3, 512, 768), (3, 512, 3072),
-               (3, 512, 32768), (3, 512, 704), (3, 512, 8192)]
-
-
-def _bf16_inputs(cuda, frames, beams, batch, scans_dtype, seed=0):
-    torch.manual_seed(seed)
-    policy = CNNPolicy(frames=frames, beams=beams).to(cuda)
-    scans = (torch.rand(batch, frames, beams, device=cuda) - 0.5).to(
-        scans_dtype)
-    act = [w.detach() for w in policy.trunk_weights("act")]
-    crt = [w.detach() for w in policy.trunk_weights("crt")]
-    return scans, act, crt
-
-
-@pytest.mark.parametrize("scans_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("frames,beams,batch", BF16_SHAPES)
-def test_trunk_bf16_kernel_matches_plain(cuda, frames, beams, batch,
-                                         scans_dtype):
-    import chip_smoke
-
-    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch, scans_dtype)
-    with torch.no_grad():
-        before = trunk_cuda.launches_by_mode["twin_trunks", batch, "bf16"]
-        got = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
-        assert trunk_cuda.launches_by_mode[
-            "twin_trunks", batch, "bf16"] == before + 1
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt, "bf16")
-    torch.cuda.synchronize()
-    assert got.dtype == want.dtype == torch.bfloat16
-    chip_smoke.check_features(got, want, "bf16", f"B = {batch}")
-
-
-@pytest.mark.parametrize("batch", [37, 768, 3072])
-def test_trunk_f32_kernel_on_bf16_scans(cuda, batch):
-    """The float32 mode on bf16 scans (--obs-bf16 without --bf16): the
-    float32 tolerance against the plain version on the same scans."""
-    scans, act, crt = _bf16_inputs(cuda, 3, 512, batch, torch.bfloat16)
-    with torch.no_grad():
-        got = trunk_cuda.twin_trunks(scans, act, crt)
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.float32
-    torch.testing.assert_close(got, want, atol=TRUNK_TOL, rtol=TRUNK_TOL)
-
-
-@pytest.mark.parametrize("precision", ["float32", "bf16"])
-@pytest.mark.parametrize("frames,beams,batch", [(3, 64, 256), (3, 512, 37),
-                                                (3, 512, 8192),
-                                                (3, 512, 32768)])
-def test_trunk_bwd_kernel_bf16_scans_within_rounding_limit(
-        cuda, frames, beams, batch, precision):
-    """Both modes on bf16 scans (bf16 mode: bf16 cotangent) against the
-    plain version in float64, by chip_smoke.check_grads."""
-    import chip_smoke
-
-    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch,
-                                   torch.bfloat16, seed=1)
-    g = torch.randn(2, batch, 256, device=cuda).to(
-        trunk_cuda.PRECISIONS[precision])
-    before = trunk_cuda.launches_by_mode["twin_trunks_grads", batch,
-                                         precision]
-    got = trunk_cuda.twin_trunks_grads(scans, act, crt, g, precision)
-    assert trunk_cuda.launches_by_mode[
-        "twin_trunks_grads", batch, precision] == before + 1
-    f64 = lambda ws: [w.double() for w in ws]
-    want = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
-                                              f64(crt), g.double(), precision)
-    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g, precision)
-    torch.cuda.synchronize()
-    chip_smoke.check_grads([*got[0], *got[1]], [*want[0], *want[1]], limits,
-                           precision, f"B = {batch}")
-
-
-@pytest.mark.parametrize("batch", [768, 8192])
-def test_trunk_bf16_kernels_are_deterministic(cuda, batch):
-    """bf16 mode, bf16 scans and cotangent: two launches of each kernel
-    agree bit for bit."""
-    scans, act, crt = _bf16_inputs(cuda, 3, 512, batch, torch.bfloat16)
-    g = torch.randn(2, batch, 256, device=cuda).to(torch.bfloat16)
-    with torch.no_grad():
-        first = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
-        second = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
-    assert torch.equal(first, second)
-    a = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
-    b = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
-    assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1]),
-                                                  (*b[0], *b[1])))
-
 
 def test_trunk_bf16_kernels_refuse_other_dtypes(cuda):
     """No silent cast: float64 scans, bf16 weights or a cotangent of the
     other mode's dtype raise."""
-    scans, act, crt = _bf16_inputs(cuda, 3, 512, 8, torch.float32)
+    scans, act, crt, _ = _inputs(cuda, _random(0), 8)
     with torch.no_grad(), pytest.raises(ValueError, match="float32 or bf16"):
         trunk_cuda.twin_trunks(scans.double(), act, crt, "bf16")
     with torch.no_grad(), pytest.raises(ValueError, match="weights"):
@@ -639,108 +706,18 @@ def test_trunk_bf16_kernels_refuse_other_dtypes(cuda):
         trunk_cuda.twin_trunks(scans, act, crt, "fp16")
 
 
-def test_bf16_training_update_on_the_card(cuda):
-    """One stage-1 update in bf16 (policy and scans, 2 arenas, horizon 16)
-    through all three kernels, the trunks in bf16 mode; finite losses and
-    a bf16 rollout buffer."""
-    tr = Trainer(TrainConfig.stage1(n_arenas=2, horizon=16,
-                                    ppo=PPOConfig(batch_size=256),
-                                    policy_dtype=torch.bfloat16,
-                                    obs_store_dtype=torch.bfloat16),
-                 device=cuda)
-    state = tr.init_state()
-    assert state.env_state.scan_hist.dtype == torch.bfloat16
-    before = dict(trunk_cuda.launches_by_mode)
-    replays = graphs.replays
-    state, m = tr.train_step(state)
-    after = trunk_cuda.launches_by_mode
-    # the acting step's warm-up runs before its capture, its 16 replays
-    # and the bootstrap
-    assert after["twin_trunks", 48, "bf16"] - before.get(
-        ("twin_trunks", 48, "bf16"), 0) == graphs.WARMUP + 16 + 1
-    assert graphs.replays - replays == 16
-    assert after["twin_trunks_grads", 256, "bf16"] - before.get(
-        ("twin_trunks_grads", 256, "bf16"), 0) == 6
-    for k in ("policy_loss", "value_loss", "entropy", "reward_mean"):
-        assert torch.isfinite(torch.tensor(m[k])), k
-    assert all(p.dtype == torch.float32 for p in state.policy.parameters())
-
-
-# ---------------------------------------------------------------------------
-# The bf16 mode on the tensor cores (csrc/trunk_mma.cuh, trunk_conv_mma.cuh,
-# conv_bwd_mma_kernel): ragged batches against the 128-row tiles, beam counts
-# whose conv2 channels split or share the 128-column N tiles (64: L2 = 16;
-# 720: L2 = 180), conv1's one or two k16 steps (1 and 3 frames: 5 and 15
-# taps; 6 frames: 30), and the bf16 fine-tune's rollout and minibatch (800:
-# fc1's K split in 9; 10,240: split in 3, 80 M tiles of db2)
-# ---------------------------------------------------------------------------
-
-#: (frames, beams, batch)
-TENSOR_CORE_SHAPES = [(3, 512, 33), (3, 512, 768), (3, 512, 1000),
-                      (3, 512, 3072), (3, 512, 32768), (3, 512, 800),
-                      (3, 512, 10240), (1, 64, 33),
-                      (6, 64, 1000), (1, 720, 768), (6, 720, 1000),
-                      (3, 720, 3072), (6, 512, 32768)]
-
-
-@pytest.mark.parametrize("scans_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("frames,beams,batch", TENSOR_CORE_SHAPES)
-def test_trunk_tensor_core_kernels_match_plain(cuda, frames, beams, batch,
-                                               scans_dtype):
-    """The bf16 forward and backward against the plain bf16 version, held
-    as chip_smoke.py holds them (check_features, check_grads against the
-    float64 plain version)."""
-    import chip_smoke
-
-    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch, scans_dtype,
-                                   seed=frames + beams + batch)
-    g = torch.randn(2, batch, 256, device=cuda).to(torch.bfloat16)
-    with torch.no_grad():
-        got = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
-        want = trunk_cuda.twin_trunks_plain(scans, act, crt, "bf16")
-    torch.cuda.synchronize()
-    chip_smoke.check_features(got, want, "bf16", f"B = {batch}")
-    grads = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
-    f64 = lambda ws: [w.double() for w in ws]
-    ref = trunk_cuda.twin_trunks_grads_plain(scans.double(), f64(act),
-                                             f64(crt), g.double(), "bf16")
-    limits = chip_smoke.trunk_grads_limits(scans, act, crt, g, "bf16")
-    torch.cuda.synchronize()
-    chip_smoke.check_grads([*grads[0], *grads[1]], [*ref[0], *ref[1]],
-                           limits, "bf16", f"B = {batch}")
-
-
-@pytest.mark.parametrize("frames,beams,batch", [(6, 720, 1000),
-                                                (3, 512, 32768)])
-def test_trunk_tensor_core_kernels_are_deterministic(cuda, frames, beams,
-                                                     batch):
-    """No float atomics in any bf16 pass: two launches bit-equal."""
-    scans, act, crt = _bf16_inputs(cuda, frames, beams, batch, torch.float32)
-    g = torch.randn(2, batch, 256, device=cuda).to(torch.bfloat16)
-    with torch.no_grad():
-        first = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
-        second = trunk_cuda.twin_trunks(scans, act, crt, "bf16")
-    assert torch.equal(first, second)
-    a = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
-    b = trunk_cuda.twin_trunks_grads(scans, act, crt, g, "bf16")
-    assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1]),
-                                                  (*b[0], *b[1])))
-
-
 def test_trunk_kernels_use_tensor_cores_in_bf16_mode_only(cuda):
     """cuobjdump -sass of the built library: HMMA/HGMMA in every bf16
     product, conv-pass and conv_bwd kernel, none in a float32 kernel."""
-    import chip_smoke
+    from rl_collision_avoidance_torch.ops import build
 
-    counts = chip_smoke.check_sass()
-    assert all(min(counts[n]) > 0 for n in chip_smoke.TENSOR_CORE_KERNELS)
-    assert all(max(counts[n]) == 0 for n in chip_smoke.FLOAT32_KERNELS)
+    check_sass(sass_mma_counts(read_sass(build.build())))
 
 
 def test_trunk_float32_mode_unmoved_by_bf16_launches(cuda):
     """The two modes share no mutable state: float32 features and gradients
     bit-equal before and after bf16 launches on the same weights."""
-    scans, act, crt, g = _bwd_inputs(cuda, 1000, seed=4)
+    scans, act, crt, g = _inputs(cuda, _random(4), 1000)
 
     def f32():
         with torch.no_grad():
@@ -756,50 +733,6 @@ def test_trunk_float32_mode_unmoved_by_bf16_launches(cuda):
     assert all(torch.equal(x, y) for x, y in zip(before, after))
 
 
-def test_results_pipeline_selection_on_the_card(cuda, tmp_path,
-                                                monkeypatch):
-    """examples/make_results.py's fine-tune with circle selection on the
-    card at a tiny depth (one arena, horizon 8, two chunks of one update,
-    20-step selection evals): the kept params are those of the chunk that
-    select_score ranks first (the earlier on a tie), and the files and the
-    phase record are written."""
-    import csv
-
-    from rl_collision_avoidance_torch.examples import make_results
-    from rl_collision_avoidance_torch.utils.params import (
-        jax_params_to_torch, load_jax_npz)
-
-    params = make_results.RESULTS / "circle_ft_params.npz"
-    ppo = TrainConfig.circle_ft().ppo._replace(batch_size=80)
-    real, seen = make_results.run_circle_eval, []
-
-    def recording(policy, **kw):
-        seen.append({k: v.detach().cpu().clone()
-                     for k, v in policy.state_dict().items()})
-        return real(policy, **kw)
-
-    monkeypatch.setattr(make_results, "run_circle_eval", recording)
-    before = trunk_cuda.bwd_launches
-    record = make_results.train("circle_ft", 2, 1, str(tmp_path),
-                                warm_start=str(params), circle_select_every=1,
-                                device=cuda, select_steps=20, horizon=8,
-                                ppo=ppo)
-    assert trunk_cuda.bwd_launches - before == 2 * 5 * 4
-    with open(tmp_path / "circle_ft_circle_curve.csv") as f:
-        curve = [{k: float(v) for k, v in r.items()}
-                 for r in csv.DictReader(f)]
-    assert [r["update"] for r in curve] == [1.0, 2.0]
-    scores = [make_results.select_score(
-        {"success_rate_mean": r["circle_success_mean"],
-         "collisions_mean": r["collisions_mean"]}) for r in curve]
-    assert record["circle_select_best_score"] == round(max(scores), 4)
-    kept = jax_params_to_torch(load_jax_npz(tmp_path / "circle_ft_params.npz"))
-    first_best = seen[scores.index(max(scores))]
-    assert all(torch.equal(kept[k], v) for k, v in first_best.items())
-    assert all(torch.isfinite(v).all() for v in kept.values())
-    assert (tmp_path / "circle_ft_metrics.csv").is_file()
-
-
 # ---------------------------------------------------------------------------
 # The acting step's CUDA graphs (utils/graphs.py): the graphed step against
 # the same step callable run eagerly (graphs.captured_on patched to False)
@@ -809,35 +742,40 @@ TRAIN_PRESETS = {"stage1": TrainConfig.stage1, "stage2": TrainConfig.stage2}
 GRAPH_HORIZON = 16
 
 
-def _small_trainer(cuda, world, dtype=torch.float32):
-    """2 arenas of ``world`` at GRAPH_HORIZON steps, 4 minibatches x 2
-    epochs; bf16 policy and scans with ``dtype`` bf16."""
-    n = get_world(world).n_robots
+def _trainer(cuda, world, dtype=torch.float32, arenas=None):
+    """A trainer of ``world``'s preset at ``arenas`` arenas, or by default
+    2 arenas at GRAPH_HORIZON steps, 4 minibatches x 2 epochs; bf16 policy
+    and scans with ``dtype`` bf16."""
     bf16 = dtype == torch.bfloat16
-    cfg = TRAIN_PRESETS[world](
-        n_arenas=2, horizon=GRAPH_HORIZON,
-        ppo=PPOConfig(batch_size=2 * n * GRAPH_HORIZON // 4, epochs=2),
-        policy_dtype=dtype, obs_store_dtype=dtype if bf16 else None)
-    return Trainer(cfg, device=cuda)
+    kw = {"policy_dtype": dtype, "obs_store_dtype": dtype if bf16 else None}
+    if arenas is None:
+        n = get_world(world).n_robots
+        kw.update(n_arenas=2, horizon=GRAPH_HORIZON,
+                  ppo=PPOConfig(batch_size=2 * n * GRAPH_HORIZON // 4,
+                                epochs=2))
+    else:
+        kw.update(n_arenas=arenas, seed=SEED)
+    return Trainer(TRAIN_PRESETS[world](**kw), device=cuda)
 
 
-def _three_updates(cuda, world, dtype, inject):
+def _three_updates(cuda, world, dtype, inject, arenas):
     """Three updates from a fresh trainer, with the PPO update between the
     rollouts; ``inject``: the action noise and reset samples given (drawn
     from a seeded generator and the env's sampler).  Returns each update's
-    metrics, parameters and env state, the rise of the graph counts and of
-    the forward kernel's launches, and a last rollout's trajectory and
-    bootstrap value."""
-    tr = _small_trainer(cuda, world, dtype)
+    metrics, parameters and env state, and a last rollout's trajectory and
+    bootstrap value; the rise of the graph counts and of the forward
+    kernel's launches; the horizon."""
+    tr = _trainer(cuda, world, dtype, arenas)
     state = tr.init_state()
     gen = torch.Generator(device=cuda).manual_seed(11)
-    e = 2 * tr.spec.n_robots
+    h, a = tr.cfg.horizon, tr.n_local
     counts = (graphs.captures, graphs.replays, trunk_cuda.launches)
     out = []
     for _ in range(3):
         draws = () if not inject else (
-            torch.randn((GRAPH_HORIZON, e, 2), generator=gen, device=cuda),
-            [tr.env.sample_pose_goal(2) for _ in range(GRAPH_HORIZON)])
+            torch.randn((h, a * tr.spec.n_robots, 2), generator=gen,
+                        device=cuda),
+            [tr.env.sample_pose_goal(a) for _ in range(h)])
         state, m = tr.train_step(state, *draws)
         out += [m, *(v.clone() for v in state.policy.state_dict().values()),
                 *(x.clone() for x in vars(state.env_state).values())]
@@ -845,7 +783,7 @@ def _three_updates(cuda, world, dtype, inject):
              trunk_cuda.launches - counts[2])
     _, traj, value = tr._rollout(state)
     out += [*(traj[k].clone() for k in sorted(traj)), value]
-    return out, rises
+    return out, rises, h
 
 
 def _same(a, b) -> bool:
@@ -854,24 +792,30 @@ def _same(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("world,dtype,inject", [
-    ("stage1", torch.float32, True), ("stage1", torch.float32, False),
-    ("stage2", torch.float32, True), ("stage2", torch.float32, False),
-    ("stage1", torch.bfloat16, False), ("stage2", torch.bfloat16, True)])
+@pytest.mark.parametrize("world,dtype,inject,arenas", [
+    ("stage1", torch.float32, True, None),
+    ("stage1", torch.float32, False, None),
+    ("stage2", torch.float32, True, None),
+    ("stage2", torch.float32, False, None),
+    ("stage1", torch.bfloat16, False, None),
+    ("stage2", torch.bfloat16, True, None),
+    ("stage1", torch.float32, False, TRAIN_ARENAS),
+    ("stage2", torch.float32, False, S2_ARENAS)], ids=_ids)
 def test_graphed_updates_are_the_eager_updates(cuda, monkeypatch, world,
-                                               dtype, inject):
+                                               dtype, inject, arenas):
     """Three stage-1 or stage-2 updates with the acting step replayed from
     its graph are the updates with the step run eagerly, bit for bit: every
     metric, parameter and env tensor after each update (so each replay read
     the parameters the PPO update wrote in place), and a fourth rollout;
-    in float32 and bf16, on injected draws and on the generators'.  One
-    capture, then one replay a step, which counts the forward it launches:
-    the kernel's launches are the eager updates' and the capture's warm-up
-    runs."""
-    graphed, rises = _three_updates(cuda, world, dtype, inject)
-    assert rises[:2] == (1, 3 * GRAPH_HORIZON)
+    in float32 and bf16, on injected draws and on the generators', at 2
+    arenas and at the presets' widths.  One capture, then one replay a
+    step, which counts the forward it launches: the kernel's launches are
+    the eager updates' and the capture's warm-up runs."""
+    graphed, rises, horizon = _three_updates(cuda, world, dtype, inject,
+                                             arenas)
+    assert rises[:2] == (1, 3 * horizon)
     monkeypatch.setattr(graphs, "captured_on", lambda device: False)
-    eager, eager_rises = _three_updates(cuda, world, dtype, inject)
+    eager, eager_rises, _ = _three_updates(cuda, world, dtype, inject, arenas)
     assert eager_rises[:2] == (0, 0)
     assert rises[2] == eager_rises[2] + graphs.WARMUP
     assert _same(graphed, eager)
@@ -879,9 +823,8 @@ def test_graphed_updates_are_the_eager_updates(cuda, monkeypatch, world,
 
 def _circle_eval_setup(cuda, arenas):
     from rl_collision_avoidance_torch.eval import circle as circle_eval
-    from rl_collision_avoidance_torch.models import load_policy
 
-    policy = load_policy(RESULTS / "circle_ft_params.npz", device=cuda)
+    policy = load_policy(CIRCLE_PARAMS, device=cuda)
     env = Env(circle(), device=cuda, seed=0)
     gen = torch.Generator(device=cuda).manual_seed(3)
     noise = circle_eval.pose_noise_draw(arenas, env.n_robots, 0.1, gen)
@@ -898,23 +841,28 @@ def _stepped(env, actions):
     return step
 
 
-def test_graphed_eval_is_the_eager_eval(cuda, monkeypatch):
-    """run_episodes on the circle, 4 arenas at 0.1 m of jitter, until the
-    eval_check ends it: every action handed to Env.step and each robot's
-    first result and its step are the eager step's, bit for bit."""
-    circle_eval, policy, env, noise = _circle_eval_setup(cuda, 4)
+@pytest.mark.parametrize("arenas,max_steps,ends", [(4, 3000, True),
+                                                   (EVAL_ARENAS, 300, False)])
+def test_graphed_eval_is_the_eager_eval(cuda, monkeypatch, arenas, max_steps,
+                                        ends):
+    """run_episodes on the circle at 0.1 m of jitter, 4 arenas until the
+    eval_check ends it and the eval's 32 for 300 steps: every action handed
+    to Env.step and each robot's first result and its step are the eager
+    step's, bit for bit."""
+    circle_eval, policy, env, noise = _circle_eval_setup(cuda, arenas)
     runs = []
     for graphed in (True, False):
         if not graphed:
             monkeypatch.setattr(graphs, "captured_on", lambda device: False)
         actions = []
         monkeypatch.setattr(env, "step", _stepped(env, actions))
-        done, first, start = circle_eval.run_episodes(policy, env, 4, 3000,
-                                                      noise)
+        done, first, start = circle_eval.run_episodes(policy, env, arenas,
+                                                      max_steps, noise)
         monkeypatch.undo()
         runs.append([done, first, start, *actions])
-    assert bool((runs[0][1] != 0).all())         # every robot has a result
-    assert len(runs[0]) - 3 < 3000               # so the check ended it
+    if ends:
+        assert bool((runs[0][1] != 0).all())     # every robot has a result
+        assert len(runs[0]) - 3 < max_steps      # so the check ended it
     assert _same(*runs)
 
 
@@ -946,14 +894,18 @@ def test_kept_eval_graphs_go_with_their_policy(cuda):
     assert gone() is None and len(circle_eval._KEPT) < kept
 
 
-def test_checkpoint_round_trip_across_graphed_updates(cuda, tmp_path):
-    """A stage-1 update with the graphed acting step, a save, two more
-    updates; the save restored into the same trainer (a new policy: a new
-    graph key, captured once) gives the same two updates bit for bit."""
+@pytest.mark.parametrize("world,arenas", [("stage1", None),
+                                          ("stage2", S2_ARENAS)])
+def test_checkpoint_round_trip_across_graphed_updates(cuda, tmp_path, world,
+                                                      arenas):
+    """An update with the graphed acting step (stage 1 at 2 arenas, stage 2
+    at its preset), a save, two more updates; the save restored into the
+    same trainer (a new policy: a new graph key, captured once) gives the
+    same two updates bit for bit."""
     from rl_collision_avoidance_torch.utils.checkpoint import (
         CheckpointManager)
 
-    tr = _small_trainer(cuda, "stage1")
+    tr = _trainer(cuda, world, arenas=arenas)
     state, _ = tr.train_step(tr.init_state())
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(state.update, tr.state_dict(state))
@@ -974,58 +926,496 @@ def test_checkpoint_round_trip_across_graphed_updates(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# The curriculum's paths at their presets' widths, cut in depth, from the
+# committed weights: each held by its gates (card_gates), and every kernel
+# launch at a batch and mode the kernel tests above hold
+# ---------------------------------------------------------------------------
+
+TRAIN_UPDATES = 2     # updates after a warm-up one
+EVAL_STEPS = 3000     # the circle eval's step limit (results/circle_eval.json)
+
+
+def _warm_trainer(cfg, params, cuda):
+    tr = Trainer(cfg, device=cuda)
+    state = tr.init_state()
+    state.policy.load_state_dict(jax_params_to_torch(load_jax_npz(params)))
+    return tr, state
+
+
+def _goal_share(metrics) -> float:
+    ended = sum(m["episodes"] for m in metrics)
+    assert ended, "no episode ended"
+    return sum(m["reached"] for m in metrics) / ended
+
+
+def _compare_plain_step(env, policy, state, obs):
+    """One more acting step of ``state``, the kernel path against the plain
+    path (plain trunks, use_kernels=False) on the same draws, both envs
+    with the kernel path's action: rewards, poses and dones equal, actions
+    within POLICY_ATOL and scans within LIDAR_ATOL; in bf16 by the flip
+    rule (a pre-activation or mean one ulp apart; a scan one ulp apart)."""
+    from rl_collision_avoidance_torch.models.policy import PRECISION
+
+    precision = PRECISION[policy.dtype]
+    plain_env = Env(env.spec, device=env.device, use_kernels=False,
+                    obs_dtype=env.obs_dtype, disc_cull_k=env.disc_cull_k,
+                    rect_silhouette=env.rect_silhouette)
+    a, n = obs.scans.shape[:2]
+    noise = torch.randn((a * n, 2), generator=env.generator,
+                        device=env.device)
+    rp, rg = env.sample_pose_goal(a)
+    action, s_k, o_k, r_k, d_k, _ = bench.act_step(env, policy, state, obs,
+                                                   noise, None, rp, rg)
+    with torch.no_grad():
+        feats = trunk_cuda.twin_trunks_plain(
+            obs.scans.reshape(a * n, *obs.scans.shape[2:]),
+            policy.trunk_weights("act"), policy.trunk_weights("crt"),
+            precision)
+        _, mean, logstd = policy.heads(feats, obs.goal.reshape(a * n, 2),
+                                       obs.speed.reshape(a * n, 2))
+        plain_action = (mean + torch.exp(logstd) * noise).reshape(a, n, 2)
+    s_p, o_p, r_p, d_p, _ = plain_env.step(state, action, rp, rg)
+    d_act = (action - plain_action).abs()
+    d_scan = (o_k.scans.float() - o_p.scans.float()).abs()
+    assert torch.equal(r_k, r_p) and torch.equal(s_k.pose, s_p.pose)
+    assert torch.equal(d_k, d_p)
+    if precision == "float32":
+        assert float(d_act.max()) <= POLICY_ATOL
+        assert float(d_scan.max()) <= LIDAR_ATOL
+        return
+    # mean = (sigmoid(x0), tanh(x1)), x = w . h + b over the 128 bf16
+    # activations h of act_fc2: a rounding of h or of x that falls the
+    # other way moves x by at most one ulp of its terms' sum S =
+    # |w| . |h| + |b|, so mean by the slope (at most 1/4, 1) times
+    # BF16_ULP S, plus one ulp of mean for its own rounding
+    with torch.no_grad():
+        dt = policy.dtype
+        gs = torch.cat([obs.goal, obs.speed], -1).reshape(a * n, 4)
+        h = torch.relu(policy.dense(torch.cat([feats[0].to(dt), gs.to(dt)],
+                                              -1), policy.act_fc2))
+        h = h.double().abs()
+        terms = torch.cat([
+            h @ head.weight.double().abs().T + head.bias.double().abs()
+            for head in (policy.actor1, policy.actor2)], -1)
+    slope = torch.tensor([0.25, 1.0], device=terms.device,
+                         dtype=torch.float64)
+    m = mean.reshape(a, n, 2).double()
+    flip_check(d_act, POLICY_ATOL, POLICY_ATOL + BF16_ULP
+               * (m.abs() + slope * terms.reshape(a, n, 2)), "bf16 actions")
+    assert bool((d_scan <= LIDAR_ATOL
+                 + BF16_ULP * o_p.scans.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=_ids)
+def test_stage1_acting_slice_on_the_card(cuda, dtype):
+    """Stage-1 acting (bench.run_acting; bf16: bench --bf16 --obs-bf16),
+    264 steps of ACT_ARENAS arenas of the trained weights: finite, the
+    kernels at the path's batch alone, a goal share of at least
+    S1_MIN_GOAL, and one more step against the plain path."""
+    precision = "bf16" if dtype == torch.bfloat16 else "float32"
+    policy = load_policy(PARAMS, device=cuda, dtype=dtype)
+    env = Env(stage1(), device=cuda, seed=SEED, obs_dtype=dtype)
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
+    robots = ACT_ARENAS * env.n_robots
+    reset_counts()
+    state, obs = env.reset(ACT_ARENAS)
+    state, obs, stats = bench.run_acting(env, policy, state, obs, 264, gen)
+    assert bool(stats["finite"])
+    assert set(read_counts()) == {("lidar_obs", robots, "float32"),
+                                  ("twin_trunks", robots, precision),
+                                  *env_launches(env, robots, 1)}
+    goal, crash, timeout = stats["ends"].tolist()[1:]
+    assert goal / (goal + crash + timeout) >= S1_MIN_GOAL
+    _compare_plain_step(env, policy, state, obs)
+
+
+#: The training paths: (preset, arenas, world, precision, warm start,
+#: updates, goal floor, float64 rule).
+TRAINING_PATHS = {
+    "stage1": (TrainConfig.stage1, TRAIN_ARENAS, "stage1", "float32",
+               PARAMS, 1 + TRAIN_UPDATES, S1_MIN_GOAL, False),
+    "stage1-bf16": (TrainConfig.stage1, TRAIN_ARENAS, "stage1", "bf16",
+                    PARAMS, 1 + TRAIN_UPDATES, S1_MIN_GOAL, False),
+    "stage2": (TrainConfig.stage2, S2_ARENAS, "stage2", "float32", PARAMS,
+               1 + TRAIN_UPDATES, S2_MIN_GOAL, False),
+    "stage2-bf16": (TrainConfig.stage2, S2_ARENAS, "stage2", "bf16", PARAMS,
+                    TRAIN_UPDATES, S2_MIN_GOAL, False),
+    "circle_ft": (TrainConfig.circle_ft, FT_ARENAS, "circle_train",
+                  "float32", CIRCLE_PARAMS, 1, None, True),
+    "stage1_rect": (TrainConfig.stage1, TRAIN_ARENAS, "stage1_rect",
+                    "float32", PARAMS, 1 + TRAIN_UPDATES, S1_MIN_GOAL, False)}
+
+
+@pytest.mark.parametrize("path", TRAINING_PATHS)
+def test_training_path_on_the_card(cuda, path):
+    """``updates`` updates of a preset at its width (bf16: --bf16
+    --obs-bf16: float32 params, a bf16 rollout buffer), warm-started from
+    the committed weights: finite losses, moved parameters, the kernels
+    launched as often as the updates launch them, a goal share of the
+    ended episodes of at least ``min_goal``, and the minibatch gradients
+    held to the plain path's (compare_minibatch_grads; ``f64``: the
+    fine-tune's cancelling critic held to float64).  The box footprint
+    also takes one acting step against the plain path."""
+    preset, arenas, world, precision, params, updates, min_goal, f64 = (
+        TRAINING_PATHS[path])
+    dtype = trunk_cuda.PRECISIONS[precision]
+    cfg = preset(n_arenas=arenas, seed=SEED, world=world, policy_dtype=dtype,
+                 obs_store_dtype=None if precision == "float32" else dtype)
+    tr, state = _warm_trainer(cfg, params, cuda)
+    start = [p.detach().clone() for p in state.policy.parameters()]
+    reset_counts()
+    metrics = []
+    for _ in range(updates):
+        state, m = tr.train_step(state)
+        metrics.append(m)
+    launches = read_counts()
+    steps = metrics[0]["env_steps"] // cfg.ppo.batch_size * cfg.ppo.epochs
+    assert all(math.isfinite(m[k]) for m in metrics
+               for k in ("policy_loss", "value_loss", "entropy"))
+    assert max(float((p.detach() - q).abs().max()) for p, q in
+               zip(state.policy.parameters(), start)) > 0
+    assert launches == training_launches(tr, updates, steps)
+    assert set(launches) <= CHECKED
+    if min_goal is not None:
+        assert _goal_share(metrics) >= min_goal
+    assert all(p.dtype == torch.float32 for p in state.policy.parameters())
+    _, traj, last_value = tr._rollout(state)
+    assert traj["scans"].dtype == (cfg.obs_store_dtype or torch.float32)
+    print(f"{world} ({precision}): minibatch samples on other pieces",
+          compare_minibatch_grads(tr, state, traj, last_value, f64))
+    if tr.env.walls_only:
+        _compare_plain_step(tr.env, state.policy, state.env_state,
+                            tr.env.obs(state.env_state))
+
+
+@pytest.mark.parametrize("footprint,cull_k,arenas,noise", [
+    ("disc", None, 1, 0.0), ("disc", None, EVAL_ARENAS, 0.1),
+    ("rect", None, 1, 0.0), ("rect", RECT_CULL_K, 1, 0.0),
+    ("rect", None, RECT_ARENAS, RECT_NOISE)])
+def test_circle_eval_on_the_card(cuda, footprint, cull_k, arenas, noise):
+    """run_circle_eval with the fine-tuned weights, up to EVAL_STEPS steps:
+    the ring, and 32 arenas at 0.1 m (EVAL_MIN_SUCCESS); on the box
+    footprint the ring and the ring culled to RECT_CULL_K (RECT_RING), and
+    RECT_ARENAS at RECT_NOISE m (RECT_MIN_SUCCESS).  Two graphs captured,
+    both replayed each step; the kernels at the eval's batch alone."""
+    from rl_collision_avoidance_torch.eval import run_circle_eval
+
+    rect = footprint == "rect"
+    spec = dataclasses.replace(circle(), footprint=footprint)
+    policy = load_policy(CIRCLE_PARAMS, device=cuda)
+    reset_counts()
+    metrics = run_circle_eval(
+        policy, spec, max_steps=EVAL_STEPS, seed=SEED, n_arenas=arenas,
+        pose_noise=noise, env_kwargs=cull_k and {"disc_cull_k": cull_k})
+    robots = arenas * spec.n_robots
+    launches = read_counts()
+    # one forward a step, after the policy graph's warm-up runs
+    steps = launches[("twin_trunks", robots, "float32")] - graphs.WARMUP
+    lidar = "lidar_obs_walls" if rect else "lidar_obs"
+    assert set(launches) == {(lidar, robots, "float32"),
+                             ("twin_trunks", robots, "float32"),
+                             *(() if rect else
+                               [("env_physics", robots, "float32")])}
+    assert (graphs.captures, graphs.replays) == (2, 2 * steps)
+    if arenas > 1:
+        floor = RECT_MIN_SUCCESS if rect else EVAL_MIN_SUCCESS
+        assert metrics["success_rate_mean"] >= floor, metrics
+    elif rect:
+        assert {k: metrics[k] for k in RECT_RING} == RECT_RING, metrics
+
+
+@pytest.mark.parametrize("precision", ["float32", "bf16"])
+def test_two_gloo_ranks_train_on_one_card(cuda, tmp_path, precision):
+    """Two ranks sharing the card through gloo (NCCL refuses two ranks on
+    one device), each training its half of the stage-1 preset's arenas for
+    1 + TRAIN_UPDATES updates from the trained weights: params bit-equal,
+    equal global metrics, a goal share of at least MP_MIN_GOAL, each rank's
+    kernels launched as its updates launch them."""
+    outs = run_ranks("card_train", {
+        "precision": precision, "arenas": TRAIN_ARENAS,
+        "updates": 1 + TRAIN_UPDATES, "params": str(PARAMS),
+        "device": "cuda:0"}, tmp_path, world=RANKS,
+        env={"CUDA_VISIBLE_DEVICES": "0"}, timeout=420)
+    first, *others = outs
+    for out in others:
+        assert all(torch.equal(v, out["params"][k])
+                   for k, v in first["params"].items())
+        assert out["metrics"] == first["metrics"]
+    assert _goal_share(first["metrics"]) >= MP_MIN_GOAL
+    for out in outs:
+        assert out["launches"] == out["want"]
+        assert set(out["launches"]) <= CHECKED
+
+
+def _synthetic_minibatch(m: int, logstd) -> dict:
+    """A stage-1 minibatch of ``m`` samples on the CPU: scans uniform over
+    the normalized range, actions drawn around random means with the
+    policy's std ``logstd`` and their log-probabilities under those means,
+    advantages and targets standard normal, 10% of the weights 0."""
+    g = torch.Generator().manual_seed(SEED + 5)
+    rand = lambda *shape: torch.rand(shape, generator=g)
+    normal = lambda *shape: torch.randn(shape, generator=g)
+    mu = torch.stack([rand(m), 2 * rand(m) - 1], -1)
+    eps = normal(m, 2)
+    logprob = (-0.5 * eps ** 2 - 0.5 * math.log(2 * math.pi)
+               - logstd).sum(-1, keepdim=True)
+    return {"scans": rand(m, 3, 512) - 0.5, "goal": 2 * normal(m, 2),
+            "speed": torch.stack([rand(m), 2 * rand(m) - 1], -1),
+            "action": mu + logstd.exp() * eps, "logprob": logprob,
+            "target": normal(m, 1), "adv": normal(m, 1),
+            "weight": (rand(m) > 0.1).float()}
+
+
+def test_two_gloo_ranks_split_update_on_one_card(cuda, tmp_path):
+    """One ppo_update (the stage-1 preset's) of a S1_BATCH-sample minibatch
+    split over two gloo ranks on the card against one process's update of
+    the whole: the ranks' params bit-equal; each gradient leaf Adam stepped
+    on within GRAD_ATOL of its largest value and GRAD_NORM in relative
+    2-norm; a parameter whose steps differ by more than lr / 2 has a
+    gradient within GRAD_ATOL of zero (Adam's first step moves it by lr g /
+    (|g| + eps), so where the gradients agree in sign away from zero the
+    params agree to rounding); the value and entropy losses within
+    GRAD_NORM."""
+    from rl_collision_avoidance_torch.algo.ppo import Batch, ppo_update
+
+    m = S1_BATCH
+    cfg = TrainConfig.stage1().ppo._replace(batch_size=m, epochs=1)
+    start = jax_params_to_torch(load_jax_npz(PARAMS))
+    batch = _synthetic_minibatch(m, start["logstd"].reshape(2))
+    outs = run_ranks("ppo", {
+        "params": start, "batch": batch, "ppo": cfg._asdict(),
+        "perms": torch.arange(m // RANKS).expand(RANKS, 1, -1),
+        "device": "cuda:0"}, tmp_path, world=RANKS,
+        env={"CUDA_VISIBLE_DEVICES": "0"}, timeout=420)
+    got = outs[0]
+    assert all(torch.equal(v, out["params"][k]) for out in outs[1:]
+               for k, v in got["params"].items())
+    policy = CNNPolicy().to(cuda)
+    policy.load_state_dict(start)
+    out = ppo_update(policy, torch.optim.Adam(policy.parameters(),
+                                              lr=cfg.learning_rate),
+                     Batch(**{k: v.to(cuda) for k, v in batch.items()}),
+                     cfg, torch.arange(m, device=cuda)[None])
+    for (name, p), ga in zip(policy.named_parameters(), got["grads"]):
+        ga, gb = ga.double(), p.grad.double().cpu()
+        scale = float(gb.abs().max())
+        assert float((ga - gb).abs().max()) <= GRAD_ATOL * scale, name
+        assert float((ga - gb).norm()) <= GRAD_NORM * float(gb.norm()), name
+        moved = (got["params"][name] - p.detach().cpu()).abs() > (
+            cfg.learning_rate / 2)
+        assert not bool((gb[moved].abs() > GRAD_ATOL * scale).any()), name
+    for i in (1, 2):                               # value, entropy
+        have, ref = float(got["minibatches"][0, i]), float(
+            out["minibatches"][0, i])
+        assert abs(have - ref) <= GRAD_NORM * abs(ref), (i, have, ref)
+
+
+def _train_slice(cuda):
+    """Stage-1 training at the preset's width from the trained weights,
+    1 + TRAIN_UPDATES updates: every metric and the params after."""
+    tr, state = _warm_trainer(TrainConfig.stage1(n_arenas=TRAIN_ARENAS,
+                                                 seed=SEED), PARAMS, cuda)
+    metrics = []
+    for _ in range(1 + TRAIN_UPDATES):
+        state, m = tr.train_step(state)
+        metrics.append(m)
+    return [*metrics, *state.policy.state_dict().values()]
+
+
+# ---------------------------------------------------------------------------
 # multi-process training (parallel/dist.py, algo/ppo.py::ppo_update)
 # ---------------------------------------------------------------------------
 
 
 def test_one_rank_nccl_update_is_the_one_process_update(cuda, tmp_path):
-    """A one-rank NCCL group, whose all-reduces really run: ppo_update at
-    stage-1 widths and a minibatch of B = 768 (2 minibatches x 2 epochs,
-    through the trunk kernels) is the update without a group bit for
-    bit."""
-    from rl_collision_avoidance_torch.algo.ppo import Batch, ppo_update
+    """A one-rank NCCL group, whose all-reduces really run: the stage-1
+    training slice at the preset's width (PPO minibatches of 32,768 through
+    the trunk kernels) is the slice without a group bit for bit."""
     from rl_collision_avoidance_torch.parallel import (setup_distributed,
                                                        teardown, world_size)
 
-    m, g = 1536, torch.Generator(device=cuda).manual_seed(0)
-    r = lambda *shape: torch.randn(shape, generator=g, device=cuda)
-    batch = Batch(scans=torch.rand((m, 3, 512), generator=g, device=cuda)
-                  - 0.5, goal=r(m, 2), speed=r(m, 2), action=r(m, 2),
-                  logprob=r(m, 1), target=r(m, 1), adv=r(m, 1),
-                  weight=(torch.rand(m, generator=g, device=cuda)
-                          > 0.2).float())
-    cfg = PPOConfig(batch_size=768, epochs=2)
-    perms = torch.stack([torch.randperm(m, generator=g, device=cuda)
-                         for _ in range(2)])
-    torch.manual_seed(1)
-    start = CNNPolicy().to(cuda).state_dict()
-
-    def run():
-        policy = CNNPolicy().to(cuda)
-        policy.load_state_dict(start)
-        opt = torch.optim.Adam(policy.parameters(), lr=5e-5)
-        launches = trunk_cuda.bwd_launches
-        out = ppo_update(policy, opt, batch, cfg, perms)
-        assert trunk_cuda.bwd_launches - launches == 4
-        return policy.state_dict(), out["minibatches"]
-
-    a, ma = run()
+    alone = _train_slice(cuda)
     setup_distributed(f"file://{tmp_path}/store", 1, 0)
     try:
         assert world_size() == 1
-        b, mb = run()
+        assert torch.distributed.get_backend() == "nccl"
+        grouped = _train_slice(cuda)
     finally:
         teardown()
-    assert all(torch.equal(v, b[k]) for k, v in a.items())
-    assert torch.equal(ma, mb)
+    assert _same(alone, grouped)
 
 
 def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
     """Two NCCL ranks that map to one card (one card visible): each rank's
     setup raises the error that says so, and neither hangs."""
-    from torch_dist_worker import run_ranks
-
     outs = run_ranks("nccl_twice", {}, tmp_path,
                      env={"CUDA_VISIBLE_DEVICES": "0"}, timeout=300)
     for out in outs:
         assert out["error"] and "NCCL takes one rank a device" in out["error"]
+
+
+# ---------------------------------------------------------------------------
+# The entry points: the curriculum, the results pipeline, the world compiler
+# ---------------------------------------------------------------------------
+
+CURRICULUM_UPDATES = 2
+CURRICULUM_EVAL_STEPS = 300
+
+
+def _stage_launches(cfg, updates, cuda) -> dict:
+    """The launches of ``updates`` updates of a fresh ``cfg`` trainer after
+    the reset of its arenas (one more lidar pass)."""
+    tr = Trainer(cfg, device=cuda)
+    steps = (cfg.horizon * tr.n_local * tr.spec.n_robots
+             // cfg.ppo.batch_size * cfg.ppo.epochs)
+    want = training_launches(tr, updates, steps)
+    want[("lidar_obs", tr.n_local * tr.spec.n_robots, "float32")] += 1
+    return want
+
+
+def _eval_launches(launches, want, batches) -> None:
+    """Beyond the training's ``want``, ``launches`` hold the evals' alone:
+    each kernel at each of ``batches`` robots, in float32."""
+    assert {k: launches.get(k, 0) for k in want} == want
+    assert {k for k in launches if k not in want} == {
+        (k, b, "float32") for b in batches
+        for k in ("lidar_obs", "twin_trunks", "env_physics")}
+    assert set(launches) <= CHECKED
+
+
+def test_curriculum_on_the_card(cuda, tmp_path):
+    """examples/train_curriculum.curriculum at full width, cut in depth
+    (CURRICULUM_UPDATES updates a stage, a checkpoint after each, evals of
+    CURRICULUM_EVAL_STEPS steps; tests/test_torch_curriculum.py holds its
+    files on the CPU): finite params, the eval's shape, the kernels
+    launched as the stages' updates and the evals launch them."""
+    n_arenas = CURRICULUM_ARENAS
+    reset_counts()
+    out = train_curriculum.curriculum(
+        updates=(CURRICULUM_UPDATES, CURRICULUM_UPDATES), n_arenas=n_arenas,
+        checkpoint_every=1, max_steps=CURRICULUM_EVAL_STEPS,
+        root=str(tmp_path), device=cuda)
+    want = {}
+    for stage, arenas in zip(("stage1", "stage2"), n_arenas):
+        params = jax_params_to_torch(load_jax_npz(out[f"{stage}_params"]))
+        assert all(bool(torch.isfinite(v).all()) for v in params.values())
+        want.update(_stage_launches(TRAIN_PRESETS[stage](n_arenas=arenas),
+                                    CURRICULUM_UPDATES, cuda))
+    ring, jitter = (out["eval"][k] for k in (
+        "deterministic_symmetric", f"jitter_{train_curriculum.EVAL_NOISE}m"))
+    assert ring["n_robots"] == jitter["n_robots"] == 50
+    assert jitter["n_arenas"] == n_arenas[2]
+    assert 0.0 <= jitter["success_rate_mean"] <= 1.0
+    _eval_launches(read_counts(), want, (50, 50 * n_arenas[2]))
+
+
+PIPELINE_UPDATES = 2
+PIPELINE_EVAL_STEPS = 300
+
+
+@pytest.mark.parametrize("flags", [[], ["--bf16", "--obs-bf16"], ["--bf16"]],
+                         ids=["float32", "bf16", "bf16-f32obs"])
+def test_results_pipeline_selection_on_the_card(cuda, tmp_path, monkeypatch,
+                                                flags):
+    """make_results' main from the fine-tune on, full width and cut in
+    depth (PIPELINE_UPDATES updates, a selection eval after each,
+    PIPELINE_EVAL_STEPS steps an eval), in float32 and in bf16 with and
+    without bf16 scans (tests/test_torch_make_results.py holds its files on
+    the CPU): the kept params are the selection eval's that select_score
+    ranks first (the earlier on a tie), with the curve and the phase
+    record; the kernels launched as the updates and the float32 evals
+    launch them."""
+    real, calls = make_results.run_circle_eval, []
+
+    def recording(policy, *args, **kwargs):  # the selection evals' inputs
+        ev = real(policy, *args, **kwargs)
+        if kwargs.get("n_arenas") == SELECT_ARENAS:
+            calls.append(({k: v.detach().cpu().clone() for k, v in
+                           policy.state_dict().items()}, ev))
+        return ev
+
+    monkeypatch.setattr(make_results, "run_circle_eval", recording)
+    pd, root = tmp_path / "params", tmp_path / "out"
+    pd.mkdir()
+    shutil.copy(CIRCLE_PARAMS, pd / "stage2_params.npz")
+    reset_counts()
+    out = make_results.main([
+        "--from-stage", "circle_ft", "--params-dir", str(pd), "--root",
+        str(root), "--circle-ft-updates", str(PIPELINE_UPDATES),
+        "--select-every", "1", "--eval-steps", str(PIPELINE_EVAL_STEPS),
+        "--eval-arenas", str(EVAL_ARENAS), "--no-plots", "--device",
+        str(cuda), *flags])
+    bf16, obs_bf16 = bool(flags), "--obs-bf16" in flags
+    name = ("circle_ft_bf16" + ("" if obs_bf16 else "_f32obs") if bf16
+            else "circle_ft")
+    record = out["phase"] if bf16 else out["phases"][-1]
+    scores = [make_results.select_score(ev) for _, ev in calls]
+    assert len(calls) == PIPELINE_UPDATES
+    kept = jax_params_to_torch(load_jax_npz(root / f"{name}_params.npz"))
+    first_best = calls[scores.index(max(scores))][0]
+    assert all(torch.equal(v, first_best[k]) for k, v in kept.items())
+    assert all(bool(torch.isfinite(v).all()) for v in kept.values())
+    with open(root / f"{name}_circle_curve.csv") as f:
+        assert [float(r["circle_success_mean"]) for r in csv.DictReader(f)
+                ] == [ev["success_rate_mean"] for _, ev in calls]
+    assert record["circle_select_best_score"] == round(max(scores), 4)
+    if bf16:
+        assert all(math.isfinite(out[k]["success_rate"]) for k in (
+            "deterministic", f"jitter_{make_results.BF16_NOISE}m"))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    _eval_launches(read_counts(), _stage_launches(TrainConfig.circle_ft(
+        n_arenas=FT_ARENAS, policy_dtype=dtype,
+        obs_store_dtype=dtype if obs_bf16 else None), PIPELINE_UPDATES, cuda),
+        (50, 50 * SELECT_ARENAS, 50 * EVAL_ARENAS, *(() if bf16 else [12])))
+
+
+def test_compiled_stage1_world_steps_as_the_committed_one(cuda):
+    """The world compiler (worlds/compile.py, its PNG reader: the card's
+    machine has no image library) rebuilds stage 1, stage 2 and the circle
+    rink bit-equal to the committed tables, and one env step of
+    TRAIN_ARENAS arenas on the compiled stage-1 world, through the lidar
+    kernel, is the step on the committed one, bit for bit."""
+    for name in ("stage1", "stage2", "circle"):
+        built, table = compile_world(name), get_world(name)
+        for f in ("seg_p", "seg_e", "seg_valid"):
+            a, b = getattr(built, f), getattr(table, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (name, f)
+    outs = []
+    for spec in (compile_world("stage1"), get_world("stage1")):
+        env = Env(spec, device=cuda, seed=SEED)
+        state, _ = env.reset(TRAIN_ARENAS)
+        act = torch.rand((TRAIN_ARENAS, spec.n_robots, 2), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(
+                             SEED + 1)) * 2 - 0.5
+        reset_counts()
+        outs.append(_step_fields(env.step(state, act)))
+        assert read_counts()[("lidar_obs", TRAIN_ARENAS * spec.n_robots,
+                              "float32")] == 1
+    assert all(torch.equal(v, outs[1][k]) for k, v in outs[0].items())
+
+
+def test_mlp_policy_on_the_card_matches_the_cpu(cuda):
+    """MLPPolicy's forward and the gradients of a mean loss over the acting
+    slice's robots' observations (3 x 512 scan beams, goal and speed) on
+    the card against the same module on the CPU, within MLP_ATOL (plain
+    PyTorch: the JAX package's MLPPolicy has no kernel either)."""
+    spec = stage1()
+    batch = ACT_ARENAS * spec.n_robots
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        cpu = MLPPolicy(spec.laser_frames * spec.n_beams + 4)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    obs = torch.randn((batch, spec.laser_frames * spec.n_beams + 4),
+                      generator=torch.Generator().manual_seed(SEED))
+
+    def run(policy, x):
+        value, mean, logstd = policy(x)
+        loss = value.square().mean() + mean.square().mean() + logstd.sum()
+        return [value, mean, *torch.autograd.grad(loss,
+                                                  list(policy.parameters()))]
+
+    with trunk_cuda.exact_float32():
+        got = run(gpu, obs.to(cuda))
+    for g, w in zip(got, run(cpu, obs)):
+        torch.testing.assert_close(g.detach().cpu(), w.detach(),
+                                   atol=MLP_ATOL, rtol=0)

@@ -36,7 +36,8 @@ DEGENERATE = (1e7, 1e7, 0.0, 0.0)   # a padding slot of the cell table
 
 def _stage1_arenas(env, arenas):
     """Seeded spawn-disc poses, plus per arena one robot 0.3-0.5 m from the
-    east wall facing it and a pair 0.5-0.7 m apart (as chip_smoke.py)."""
+    east wall facing it and a pair 0.5-0.7 m apart (as the card tests'
+    test poses)."""
     pose, _ = env.sample_pose_goal(arenas)
     u = torch.rand((arenas, 4), generator=env.generator)
     pose[:, 0, 0] = 9.6 - 0.3 - 0.2 * u[:, 0]

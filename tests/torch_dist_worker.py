@@ -9,12 +9,17 @@ names of any JAX, flax, PIL or JAX-package module it loaded: it imports
 the port alone, so every run also holds the port to the no-JAX rule in a
 fresh process.  The tests start the ranks with :func:`run_ranks`.  Modes:
 
-- ``ppo``: ``ppo_update`` on this rank's shard of IN's batch
-  (gloo, CPU);
+- ``ppo``: ``ppo_update`` on this rank's shard of IN's batch (gloo, on
+  IN's device, the CPU by default): the params and the gradients it left,
+  the losses;
 - ``train``: one ``Trainer.train_step`` on mini with this rank's slice of
   IN's env state, noise, reset draws and minibatch orders (gloo, CPU);
 - ``nccl_twice``: set up an NCCL group whose ranks share one card, which
-  must raise; the error's text is written.
+  must raise; the error's text is written;
+- ``card_train``: stage-1 training of this rank's share of IN's arenas,
+  warm-started from IN's params, on IN's device (gloo, which lets two ranks
+  share one card): its params, the global metrics, and the kernels'
+  launches against those the rank should make.
 """
 import os
 import subprocess
@@ -66,16 +71,20 @@ def ppo(rank: int, world: int, inp: dict) -> dict:
                                                       ppo_update)
     from rl_collision_avoidance_torch.models import CNNPolicy
 
+    device = inp.get("device", "cpu")
     cfg = PPOConfig(**inp["ppo"])
-    policy = CNNPolicy(*inp["batch"]["scans"].shape[1:])
+    policy = CNNPolicy(*inp["batch"]["scans"].shape[1:]).to(device)
     policy.load_state_dict(inp["params"])
     optimizer = torch.optim.Adam(policy.parameters(), lr=cfg.learning_rate,
                                  betas=(0.9, 0.999), eps=1e-8)
     m = inp["batch"]["scans"].shape[0] // world
-    batch = Batch(*(inp["batch"][f][rank * m:(rank + 1) * m]
+    batch = Batch(*(inp["batch"][f][rank * m:(rank + 1) * m].to(device)
                     for f in Batch._fields))
-    out = ppo_update(policy, optimizer, batch, cfg, inp["perms"][rank])
-    return {"params": policy.state_dict(),
+    out = ppo_update(policy, optimizer, batch, cfg,
+                     inp["perms"][rank].to(device))
+    return {"params": {k: v.cpu() for k, v in policy.state_dict().items()},
+            "grads": [p.grad.cpu() for p in policy.parameters()],
+            "minibatches": out["minibatches"].cpu(),
             "metrics": {k: float(out[k]) for k in ("policy_loss",
                                                    "value_loss", "entropy")}}
 
@@ -103,6 +112,33 @@ def train(rank: int, world: int, inp: dict) -> dict:
     return {"params": state.policy.state_dict(), "metrics": metrics}
 
 
+def card_train(rank: int, world: int, inp: dict) -> dict:
+    from card_gates import read_counts, reset_counts, training_launches
+    from rl_collision_avoidance_torch.ops.trunk_cuda import PRECISIONS
+    from rl_collision_avoidance_torch.train import TrainConfig, Trainer
+    from rl_collision_avoidance_torch.utils.params import (
+        jax_params_to_torch, load_jax_npz)
+
+    dtype = PRECISIONS[inp["precision"]]
+    cfg = TrainConfig.stage1(
+        n_arenas=inp["arenas"], policy_dtype=dtype,
+        obs_store_dtype=None if dtype == torch.float32 else dtype)
+    tr = Trainer(cfg, device=inp["device"])
+    state = tr.init_state()
+    state.policy.load_state_dict(jax_params_to_torch(load_jax_npz(
+        inp["params"])))
+    reset_counts()
+    metrics = []
+    for _ in range(inp["updates"]):
+        state, m = tr.train_step(state)
+        metrics.append(m)
+    steps = metrics[0]["env_steps"] // cfg.ppo.batch_size * cfg.ppo.epochs
+    return {"params": {k: v.cpu() for k, v in
+                       state.policy.state_dict().items()},
+            "metrics": metrics, "launches": read_counts(),
+            "want": training_launches(tr, len(metrics), steps)}
+
+
 def nccl_twice(rank: int, world: int, url: str) -> dict:
     from rl_collision_avoidance_torch.parallel import setup_distributed
 
@@ -124,9 +160,11 @@ def main():
                                                            teardown)
 
         inp = torch.load(in_path)
-        setup_distributed(url, world, rank, device="cpu")
+        setup_distributed(url, world, rank, backend="gloo",
+                          device=inp.get("device", "cpu"))
         try:
-            out = {"ppo": ppo, "train": train}[mode](rank, world, inp)
+            out = {"ppo": ppo, "train": train,
+                   "card_train": card_train}[mode](rank, world, inp)
         finally:
             teardown()
     out["forbidden"] = sorted(m for m in sys.modules

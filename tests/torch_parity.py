@@ -29,6 +29,8 @@ from rl_collision_avoidance_tpu.models import distributions as jdist
 from rl_collision_avoidance_tpu.utils.checkpoint import load_params_npz
 from rl_collision_avoidance_tpu.worlds.spec import ResetMode as JResetMode
 
+from card_gates import BF16_FLIP_SHARE as FLIP_SHARE
+from card_gates import BF16_ULP as ULP
 from rl_collision_avoidance_torch.engine.celltable import lookup_cells
 from rl_collision_avoidance_torch.engine.env import EnvState
 
@@ -101,8 +103,6 @@ def check_scans(env, mine, ref, pose, prev=None, reset=None):
 # bf16 outputs (see tests/test_torch_bf16.py's module docstring)
 # ---------------------------------------------------------------------------
 
-ULP = 2.0 ** -7        # one bf16 ulp is at most this share of a value
-FLIP_SHARE = 1e-2      # as chip_smoke.BF16_FLIP_SHARE
 # Float32 sums of the same terms in another order: features and outputs
 # to 1e-5, the float32 tests' order (tests/test_torch_trunk.py reads 3e-6).
 BF16_ATOL = BF16_RTOL = 1e-5
