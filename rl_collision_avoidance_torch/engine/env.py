@@ -22,10 +22,11 @@ the JAX package and the reference (``stage_world1.py``, ``stage_world2.py``,
 
 On the CUDA card a disc world's step runs steps 1-4 and the observation's
 body-frame goal in the hand-written kernels of ``ops/env_cuda.py`` (one
-launch, or two with the reset sampler between them; the rule is
-``env_cuda.kernel_path``); the CPU, ``use_kernels=False`` and rect worlds
-run the plain PyTorch chain, :meth:`Env._step_plain`, which the kernels
-are held to bit for bit.
+launch, or two with the reset sampler between them, whose maps are a third;
+the rule is ``env_cuda.kernel_path``); the CPU, ``use_kernels=False`` and
+rect worlds run the plain PyTorch chain, :meth:`Env._step_plain`, and the
+plain maps of ``engine/sampling.py``, which the kernels are held to bit for
+bit.
 
 The lidar runs through ``ops/lidar_cuda.py::lidar_obs``: the hand-written
 kernel when the env lives on the CUDA card, its plain version on the CPU.
@@ -174,6 +175,10 @@ class Env:
                                         self.wall_table)
                          if env_cuda.kernel_path(self.device, use_kernels,
                                                  spec.footprint) else None)
+        # The reset sampler's kernel: the kernel path of a world that resets
+        # (a FIXED_TABLES world samples only in reset, and plainly).
+        self._sampler = (self._kernels if self._kernels is not None
+                         and not self._kernels.fixed else None)
         if spec.reset_mode is not ResetMode.RANDOM_DISC:
             self._pose_table = as_tensor(spec.init_pose_table)
             self._goal_table = as_tensor(spec.goal_table)
@@ -227,29 +232,60 @@ class Env:
         """Fresh (pose (A, N, 3), goal (A, N, 2)) for every robot; the env
         applies them under its reset mask.  ``cur_pose`` (A, N, 3), zeros
         when not given, is where the robots stand: a corridor pose lies at
-        least 7 m from it."""
-        spec, a, n = self.spec, n_arenas, self.n_robots
+        least 7 m from it.  The uniforms come from the env's generator
+        (:meth:`_draw`); on the kernel path of a world that resets the
+        card's sampler kernel maps them (``env_cuda.sample``), elsewhere
+        the plain maps (:meth:`_sample_plain`), bit for bit alike."""
+        draws = self._draw(n_arenas)
+        if self._sampler is not None:
+            return env_cuda.sample(self._sampler, n_arenas, *draws, cur_pose)
+        return self._sample_plain(n_arenas, *draws, cur_pose)
+
+    def _draw(self, a: int):
+        """(u_pose, u_goal, u_jitter): the uniforms of one sample of ``a``
+        arenas, drawn in this order: the disc's pose (3, A, N) and goal
+        candidates (2, A, N, K); or the table jitter (A, N, 2) where the
+        world jitters, then its corridor robots' pose (3, A, N, K) and goal
+        (2, A, N, K) candidates where it has them.  None where the world
+        draws none."""
+        spec, n, k = self.spec, self.n_robots, sampling._K
+
+        def rand(*shape):
+            return torch.rand(shape, generator=self.generator,
+                              device=self.device)
+
         if spec.reset_mode is ResetMode.RANDOM_DISC:
-            pose = sampling.stage1_poses((a, n), spec.spawn_radius,
-                                         self.generator, self.device)
-            goal = sampling.stage1_goals(pose[..., :2], spec.spawn_radius,
-                                         spec.goal_dist_min,
-                                         spec.goal_dist_max, self.generator)
+            u_pose = rand(3, a, n)
+            return u_pose, rand(2, a, n, k), None
+        u_jitter = rand(a, n, 2) if spec.pose_jitter > 0.0 else None
+        if (spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR
+                and spec.n_fixed < n):
+            u_pose = rand(3, a, n, k)
+            return u_pose, rand(2, a, n, k), u_jitter
+        return None, None, u_jitter
+
+    def _sample_plain(self, a: int, u_pose, u_goal, u_jitter,
+                      cur_pose: torch.Tensor | None = None):
+        """:meth:`sample_pose_goal` from the uniforms of :meth:`_draw`,
+        through ``engine/sampling.py``'s plain maps."""
+        spec, n = self.spec, self.n_robots
+        if spec.reset_mode is ResetMode.RANDOM_DISC:
+            pose = sampling.stage1_poses_from(u_pose, spec.spawn_radius)
+            goal = sampling.stage1_goals_from(
+                u_goal, pose[..., :2], spec.spawn_radius, spec.goal_dist_min,
+                spec.goal_dist_max)
             return pose, goal
         # Table poses, optionally jittered (circle_train: uniform +-J on x/y
         # at every reset; goals and headings stay exact).
-        pose = self._pose_table.expand(a, n, 3).clone()
+        pose = (self._pose_table.expand(a, n, 3).clone() if u_jitter is None
+                else sampling.table_poses_from(u_jitter, self._pose_table,
+                                               spec.pose_jitter))
         goal = self._goal_table.expand(a, n, 2)
-        if spec.pose_jitter > 0.0:
-            u = torch.rand((a, n, 2), generator=self.generator,
-                           device=self.device)
-            pose[..., :2] += spec.pose_jitter * (2.0 * u - 1.0)
-        if (spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR
-                and spec.n_fixed < n):
+        if u_pose is not None:
             if cur_pose is None:
                 cur_pose = torch.zeros((a, n, 3), device=self.device)
-            rpose = sampling.corridor_poses(cur_pose[..., :2], self.generator)
-            rgoal = sampling.corridor_goals(rpose[..., :2], self.generator)
+            rpose = sampling.corridor_poses_from(u_pose, cur_pose[..., :2])
+            rgoal = sampling.corridor_goals_from(u_goal, rpose[..., :2])
             fixed = self._fixed[:, None]
             pose = torch.where(fixed, pose, rpose)
             goal = torch.where(fixed, goal, rgoal)

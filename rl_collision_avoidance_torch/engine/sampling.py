@@ -5,9 +5,10 @@ reference's rejection loops (``stage_world1.py:251-274``,
 Counterpart of ``rl_collision_avoidance_tpu/engine/sampling.py``.  Random
 numbers come from the ``torch.Generator`` the caller passes; they are not
 the JAX package's threefry bits, so tests compare distributions, or feed
-both sides the same draws: the corridor samplers' maps from uniforms to
-poses (:func:`corridor_poses_from`, :func:`corridor_goals_from`) take the
-uniforms as an argument.
+both sides the same draws.  Each sampler is a draw, then a map: the
+``*_from`` maps take the uniforms as an argument.  They are the CPU's path
+and the plain version that the card's sampler kernel
+(``ops/env_cuda.py::sample``) is held to bit for bit.
 """
 from __future__ import annotations
 
@@ -26,28 +27,26 @@ def _first_valid(cands: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.gather(cands, -2, idx)[..., 0, :]
 
 
-def stage1_poses(shape, spawn_radius: float, generator: torch.Generator,
-                 device) -> torch.Tensor:
-    """(*shape, 3) poses uniform in the disc of ``spawn_radius`` (polar
-    inversion, r = R sqrt(u)), heading U(0, 2 pi)."""
-    u = torch.rand((3, *shape), generator=generator, device=device)
+def stage1_poses_from(u: torch.Tensor, spawn_radius: float) -> torch.Tensor:
+    """u (3, ...) uniforms -> (..., 3) poses uniform in the disc of
+    ``spawn_radius`` (polar inversion, r = R sqrt(u[0])), heading
+    2 pi u[2]."""
     r = spawn_radius * torch.sqrt(u[0])
     phi = 2.0 * math.pi * u[1]
     theta = 2.0 * math.pi * u[2]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), theta], dim=-1)
 
 
-def stage1_goals(pose_xy: torch.Tensor, spawn_radius: float, dmin: float,
-                 dmax: float, generator: torch.Generator) -> torch.Tensor:
-    """(..., 2) goals uniform on disc(spawn_radius) ∩ annulus(dmin, dmax)
-    around each start ``pose_xy`` (..., 2).
+def stage1_goals_from(u: torch.Tensor, pose_xy: torch.Tensor,
+                      spawn_radius: float, dmin: float,
+                      dmax: float) -> torch.Tensor:
+    """u (2, ..., K) uniforms, pose_xy (..., 2) -> (..., 2) goals uniform on
+    disc(spawn_radius) ∩ annulus(dmin, dmax) around each start.
 
-    K candidates per robot are drawn uniformly on the annulus and the first
-    inside the disc is kept; the none-valid fallback (< ~1e-5 per reset)
-    projects the first candidate into the disc so the goal stays reachable.
+    The K candidates lie uniformly on the annulus and the first inside the
+    disc is kept; the none-valid fallback (< ~1e-5 per reset) projects the
+    first candidate into the disc so the goal stays reachable.
     """
-    u = torch.rand((2, *pose_xy.shape[:-1], _K), generator=generator,
-                   device=pose_xy.device)
     r = torch.sqrt(dmin * dmin + u[0] * (dmax * dmax - dmin * dmin))
     phi = 2.0 * math.pi * u[1]
     cand = pose_xy[..., None, :] + torch.stack(
@@ -57,6 +56,32 @@ def stage1_goals(pose_xy: torch.Tensor, spawn_radius: float, dmin: float,
     norm = torch.linalg.vector_norm(goal, dim=-1).clamp_min(1e-6)
     scale = (spawn_radius / norm).clamp_max(1.0)
     return goal * scale[..., None]
+
+
+def stage1_poses(shape, spawn_radius: float, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """(*shape, 3) poses uniform in the disc of ``spawn_radius``."""
+    u = torch.rand((3, *shape), generator=generator, device=device)
+    return stage1_poses_from(u, spawn_radius)
+
+
+def stage1_goals(pose_xy: torch.Tensor, spawn_radius: float, dmin: float,
+                 dmax: float, generator: torch.Generator) -> torch.Tensor:
+    """(..., 2) goals in disc(spawn_radius) ∩ annulus(dmin, dmax) around
+    each start ``pose_xy`` (..., 2): :func:`stage1_goals_from` of K
+    candidates a start."""
+    u = torch.rand((2, *pose_xy.shape[:-1], _K), generator=generator,
+                   device=pose_xy.device)
+    return stage1_goals_from(u, pose_xy, spawn_radius, dmin, dmax)
+
+
+def table_poses_from(u: torch.Tensor, table: torch.Tensor,
+                     jitter: float) -> torch.Tensor:
+    """u (..., 2) uniforms, table (N, 3) -> (..., N, 3): the table poses with
+    x/y moved by jitter (2 u - 1), uniform in +-jitter; headings exact."""
+    pose = table.expand(*u.shape[:-1], 3).clone()
+    pose[..., :2] += jitter * (2.0 * u - 1.0)
+    return pose
 
 
 def _corridor_xy(u_x: torch.Tensor, u_y: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 // Env-step kernels: one control step of every robot of every arena, all of
-// engine/env.py::Env.step but the reset sampler and the lidar, in at most two
-// launches.
+// engine/env.py::Env.step but the lidar, in at most three launches; and the
+// reset sampler's maps from its uniforms (Env.sample_pose_goal).
 //
 // Replaces no TPU kernel: the JAX package's step is plain XLA, fused by its
 // compiler into the rollout's lax.scan.  The port ran the same step as ~100
@@ -27,13 +27,30 @@
 // A FIXED_TABLES world never resets and needs the first launch alone.  Both
 // also write the body-frame goal of the observation.
 //
+// The reset sample between them: Env.sample_pose_goal draws its uniforms
+// with torch.rand from the env's generator, and env_sample_kernel, one
+// thread per robot, maps them as engine/sampling.py's plain maps do (8 to
+// 42 small PyTorch kernels a step, each a launch).  RANDOM_DISC: the pose by
+// polar inversion in the disc, then the first of K annulus candidates
+// inside the disc, projected into it when none is.  TABLES_THEN_CORRIDOR:
+// the robot's table pose (jittered where the world jitters) and goal, or,
+// for a robot at n_fixed or above, the first of K corridor candidates at
+// least 7 m from where it stands, its heading, and the first of K goal
+// candidates at least 7 m from the new pose.  It reads the mode and n_fixed
+// from EnvConsts, as env_physics_kernel does.  Each thread loops over its
+// K candidates and stops at the first valid one: a few microseconds for
+// ~1,600 robots.
+//
 // Numerics: every float operation is the IEEE-rounded one the plain chain
 // does, in its order (__fmul_rn / __fadd_rn / __fsub_rn forbid contraction,
 // __fdiv_rn and __fsqrt_rn are exact, cosf/sinf are PyTorch's own without
 // fast math).  Where PyTorch reduces a pair (sum(-1), vector_norm), it adds
 // the two rounded terms; a division by a scalar is a product with the
-// scalar's float32 reciprocal, as PyTorch computes it on the card.  So the
-// outputs are the plain chain's bit for bit.
+// scalar's float32 reciprocal, as PyTorch computes it on the card, and a
+// scalar divided by a tensor (R / norm) is the tensor's reciprocal times
+// the scalar.  Python-double constants are rounded to float32 once, as
+// PyTorch rounds a scalar operand (2 pi, dmin^2, dmax^2 - dmin^2, 0.4).  So
+// the outputs are the plain chain's bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,6 +58,9 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kMaxRobots = 1024;
 constexpr int kResetThreads = 128;
+// float32(2.0 * math.pi), the scalar PyTorch multiplies the samplers'
+// uniforms by.
+constexpr float kTwoPi = 6.2831854820251465f;
 
 // ResetMode of worlds/spec.py.
 enum Mode { kRandomDisc = 0, kTablesThenCorridor = 1, kFixedTables = 2 };
@@ -70,6 +90,13 @@ struct EnvConsts {
   float lo_x, lo_y, inv_cell;
   int n, mode, substeps, timeout, dist_zero;
   float h, radius_sq, diam_sq, goal_size, omega;
+  // The reset sampler's: (N, 3) table poses and (N, 2) goals (null in a
+  // RANDOM_DISC world), the robots that keep them, the disc's radius,
+  // dmin^2, dmax^2 - dmin^2 and the table jitter.
+  const float* pose_table;
+  const float* goal_table;
+  int n_fixed;
+  float spawn_r, dmin_sq, d_span, jitter;
 };
 
 namespace {
@@ -82,6 +109,11 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
 // Tensor.clamp_min.
 __device__ __forceinline__ float clamp_min(float v, float lo) {
   return isnan(v) ? v : fmaxf(v, lo);
+}
+
+// Tensor.clamp_max.
+__device__ __forceinline__ float clamp_max(float v, float hi) {
+  return isnan(v) ? v : fminf(v, hi);
 }
 
 // torch.linalg.vector_norm of a pair: the two rounded squares, added.
@@ -298,6 +330,118 @@ env_reset_kernel(EnvConsts c, int m,
   local_goal(x, y, th, gx, gy, fout + kObsGoal * mm + 2 * r);
 }
 
+// engine/sampling.py::stage1_poses_from and stage1_goals_from for robot r:
+// u_pose (3, M), u_goal (2, M, K).
+__device__ void disc_sample(const EnvConsts& c, int m, int k, int r,
+                            const float* __restrict__ u_pose,
+                            const float* __restrict__ u_goal, float* pose,
+                            float* goal) {
+  const float rad = __fmul_rn(c.spawn_r, __fsqrt_rn(u_pose[r]));
+  const float phi = __fmul_rn(kTwoPi, u_pose[m + r]);
+  const float px = __fmul_rn(rad, cosf(phi));
+  const float py = __fmul_rn(rad, sinf(phi));
+  pose[0] = px;
+  pose[1] = py;
+  pose[2] = __fmul_rn(kTwoPi, u_pose[2 * m + r]);
+  // The first candidate inside the disc (argmax over a uint8 mask: the
+  // first valid one, else candidate 0).
+  const float* ur = u_goal + static_cast<size_t>(r) * k;
+  const float* uphi = ur + static_cast<size_t>(m) * k;
+  float gx = 0.f, gy = 0.f;
+  for (int q = 0; q < k; ++q) {
+    const float rq =
+        __fsqrt_rn(__fadd_rn(c.dmin_sq, __fmul_rn(ur[q], c.d_span)));
+    const float ph = __fmul_rn(kTwoPi, uphi[q]);
+    const float x = __fadd_rn(px, __fmul_rn(rq, cosf(ph)));
+    const float y = __fadd_rn(py, __fmul_rn(rq, sinf(ph)));
+    const bool valid = norm2(x, y) <= c.spawn_r;
+    if (q == 0 || valid) {
+      gx = x;
+      gy = y;
+      if (valid) break;
+    }
+  }
+  // Into the disc: scale = min(R / max(|g|, 1e-6), 1), where R / t is
+  // PyTorch's reciprocal(t) * R.
+  const float nrm = clamp_min(norm2(gx, gy), 1e-6f);
+  const float scale = clamp_max(__fmul_rn(__fdiv_rn(1.0f, nrm), c.spawn_r),
+                                1.0f);
+  goal[0] = __fmul_rn(gx, scale);
+  goal[1] = __fmul_rn(gy, scale);
+}
+
+// engine/sampling.py::_corridor_xy and the first of K candidates at least
+// 7 m from (fx, fy), else candidate 0: ux, uy the candidates' uniforms.
+__device__ void corridor_pick(int k, const float* __restrict__ ux,
+                              const float* __restrict__ uy, float fx,
+                              float fy, float* x_out, float* y_out) {
+  for (int q = 0; q < k; ++q) {
+    const float x = __fadd_rn(__fmul_rn(10.0f, ux[q]), 9.0f);
+    const float ty = __fmul_rn(uy[q], 10.0f);
+    const float y =
+        uy[q] <= 0.4f ? -__fadd_rn(ty, 1.0f) : -__fadd_rn(ty, 9.0f);
+    const bool valid = norm2(__fsub_rn(x, fx), __fsub_rn(y, fy)) >= 7.0f;
+    if (q == 0 || valid) {
+      *x_out = x;
+      *y_out = y;
+      if (valid) return;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kResetThreads)
+env_sample_kernel(EnvConsts c, int m, int k,
+                  const float* __restrict__ u_pose,    // (3, A, N[, K])
+                  const float* __restrict__ u_goal,    // (2, A, N, K)
+                  const float* __restrict__ u_jitter,  // (A, N, 2) or null
+                  const float* __restrict__ cur_pose,  // (A, N, 3) or null
+                  float* __restrict__ out) {  // pose (A, N, 3), goal (A, N, 2)
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= m) return;
+  const size_t mm = m;
+  float* pose = out + 3 * static_cast<size_t>(r);
+  float* goal = out + 3 * mm + 2 * static_cast<size_t>(r);
+  if (c.mode == kRandomDisc) {
+    disc_sample(c, m, k, r, u_pose, u_goal, pose, goal);
+    return;
+  }
+  const int i = r % c.n;
+  if (i < c.n_fixed) {
+    // The table pose, x/y moved by jitter * (2 u - 1) where the world
+    // jitters (engine/sampling.py::table_poses_from).
+    float x = c.pose_table[3 * i];
+    float y = c.pose_table[3 * i + 1];
+    if (u_jitter != nullptr) {
+      const float jx = __fsub_rn(__fmul_rn(2.0f, u_jitter[2 * r]), 1.0f);
+      const float jy = __fsub_rn(__fmul_rn(2.0f, u_jitter[2 * r + 1]), 1.0f);
+      x = __fadd_rn(x, __fmul_rn(c.jitter, jx));
+      y = __fadd_rn(y, __fmul_rn(c.jitter, jy));
+    }
+    pose[0] = x;
+    pose[1] = y;
+    pose[2] = c.pose_table[3 * i + 2];
+    goal[0] = c.goal_table[2 * i];
+    goal[1] = c.goal_table[2 * i + 1];
+    return;
+  }
+  // A corridor robot (corridor_poses_from, corridor_goals_from): a pose at
+  // least 7 m from where it stands (the origin without cur_pose), heading
+  // 2 pi u[2, r, 0], and a goal at least 7 m from the new pose.
+  const size_t mk = mm * k;
+  const float* u = u_pose + static_cast<size_t>(r) * k;
+  const float fx = cur_pose != nullptr ? cur_pose[3 * r] : 0.0f;
+  const float fy = cur_pose != nullptr ? cur_pose[3 * r + 1] : 0.0f;
+  float px = 0.f, py = 0.f, gx = 0.f, gy = 0.f;
+  corridor_pick(k, u, u + mk, fx, fy, &px, &py);
+  pose[0] = px;
+  pose[1] = py;
+  pose[2] = __fmul_rn(kTwoPi, u[2 * mk]);
+  const float* ug = u_goal + static_cast<size_t>(r) * k;
+  corridor_pick(k, ug, ug + mk, px, py, &gx, &gy);
+  goal[0] = gx;
+  goal[1] = gy;
+}
+
 }  // namespace
 
 extern "C" int env_physics_launch(const EnvConsts* c, int arenas,
@@ -336,5 +480,20 @@ extern "C" int env_reset_launch(const EnvConsts* c, int arenas,
       *c, m, static_cast<const float*>(reset_pose),
       static_cast<const float*>(reset_goal), static_cast<float*>(fout),
       static_cast<const bool*>(bout), static_cast<int*>(step_out));
+  return cudaGetLastError();
+}
+
+extern "C" int env_sample_launch(const EnvConsts* c, int arenas, int k,
+                                 const void* u_pose, const void* u_goal,
+                                 const void* u_jitter, const void* cur_pose,
+                                 void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int m = arenas * c->n;
+  env_sample_kernel<<<(m + kResetThreads - 1) / kResetThreads, kResetThreads,
+                      0, static_cast<cudaStream_t>(stream)>>>(
+      *c, m, k, static_cast<const float*>(u_pose),
+      static_cast<const float*>(u_goal), static_cast<const float*>(u_jitter),
+      static_cast<const float*>(cur_pose), static_cast<float*>(out));
   return cudaGetLastError();
 }

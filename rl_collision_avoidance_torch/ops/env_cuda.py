@@ -4,8 +4,10 @@
 or, where :func:`kernel_path` says so, :func:`physics` and
 :func:`reset_apply`: the hand-written kernels in ``csrc/env_step.cu``, which
 do the whole step but the reset sampler and the lidar in one launch
-(``FIXED_TABLES``) or two, with the sampler between them.  There is no
-fallback between the two: a CUDA tensor that the kernels cannot take
+(``FIXED_TABLES``) or two, with the sampler between them.  On the same
+path, in the worlds that reset, ``Env.sample_pose_goal`` maps its uniforms
+with :func:`sample`, one more launch.  There is no fallback between the
+kernels and the plain chain: a CUDA tensor that the kernels cannot take
 raises.  The box footprint's separating-axis tests are another algorithm,
 and rect worlds keep the plain chain.
 
@@ -29,7 +31,8 @@ from . import build
 #: Kernel launches since the count was last set to 0.
 launches = 0
 #: The same launches by (kernel, robots, "float32"): "env_physics" for the
-#: step up to the reset mask, "env_reset" for the reset apply.
+#: step up to the reset mask, "env_reset" for the reset apply, "env_sample"
+#: for the reset sampler.
 launches_by_mode: collections.Counter = collections.Counter()
 
 
@@ -50,7 +53,11 @@ class EnvConsts(ctypes.Structure):
                 ("substeps", ctypes.c_int), ("timeout", ctypes.c_int),
                 ("dist_zero", ctypes.c_int), ("h", ctypes.c_float),
                 ("radius_sq", ctypes.c_float), ("diam_sq", ctypes.c_float),
-                ("goal_size", ctypes.c_float), ("omega", ctypes.c_float)]
+                ("goal_size", ctypes.c_float), ("omega", ctypes.c_float),
+                ("pose_table", ctypes.c_void_p),
+                ("goal_table", ctypes.c_void_p), ("n_fixed", ctypes.c_int),
+                ("spawn_r", ctypes.c_float), ("dmin_sq", ctypes.c_float),
+                ("d_span", ctypes.c_float), ("jitter", ctypes.c_float)]
 
 
 @dataclasses.dataclass
@@ -60,6 +67,7 @@ class World:
     consts: EnvConsts
     wall: torch.Tensor
     group_id: torch.Tensor | None
+    tables: tuple[torch.Tensor, torch.Tensor] | None
     fixed: bool
 
 
@@ -76,7 +84,13 @@ def world(spec, wall_cells: torch.Tensor, wall_table) -> World:
         dense = np.unique(np.asarray(spec.group_id), return_inverse=True)[1]
         group_id = torch.as_tensor(dense.reshape(-1), dtype=torch.int32,
                                    device=wall.device)
+    tables = None
+    if spec.reset_mode is not ResetMode.RANDOM_DISC:
+        tables = tuple(torch.as_tensor(t, dtype=torch.float32,
+                                       device=wall.device).contiguous()
+                       for t in (spec.init_pose_table, spec.goal_table))
     lo = np.asarray(wall_table.lo, np.float32)
+    dmin, dmax = spec.goal_dist_min, spec.goal_dist_max
     consts = EnvConsts(
         wall=wall.data_ptr(),
         group_id=None if group_id is None else group_id.data_ptr(),
@@ -88,8 +102,14 @@ def world(spec, wall_cells: torch.Tensor, wall_table) -> World:
         timeout=spec.timeout, dist_zero=int(spec.dist_prev_zero_on_reset),
         h=spec.dt / spec.substeps, radius_sq=spec.robot_radius ** 2,
         diam_sq=(2.0 * spec.robot_radius) ** 2, goal_size=spec.goal_size,
-        omega=spec.omega_thresh)
-    return World(consts, wall, group_id,
+        omega=spec.omega_thresh,
+        pose_table=None if tables is None else tables[0].data_ptr(),
+        goal_table=None if tables is None else tables[1].data_ptr(),
+        n_fixed=spec.n_fixed, spawn_r=spec.spawn_radius,
+        # the scalars engine/sampling.py computes in Python, then rounds
+        dmin_sq=dmin * dmin, d_span=dmax * dmax - dmin * dmin,
+        jitter=spec.pose_jitter)
+    return World(consts, wall, group_id, tables,
                  spec.reset_mode is ResetMode.FIXED_TABLES)
 
 
@@ -123,7 +143,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: Each C entry point's arguments: the constants, the arena count, the
 #: tensors' pointers, the device and the stream.
 _ARGTYPES = {"env_physics_launch": [_P, _I] + [_P] * 11 + [_I, _P],
-             "env_reset_launch": [_P, _I] + [_P] * 5 + [_I, _P]}
+             "env_reset_launch": [_P, _I] + [_P] * 5 + [_I, _P],
+             "env_sample_launch": [_P, _I, _I] + [_P] * 5 + [_I, _P]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,3 +230,43 @@ def reset_apply(w: World, out: Step, reset_pose: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "env_reset")
     graphs.launched(_count, "env_reset", a * n)
+
+
+def sample(w: World, arenas: int, u_pose: torch.Tensor | None,
+           u_goal: torch.Tensor | None, u_jitter: torch.Tensor | None = None,
+           cur_pose: torch.Tensor | None = None):
+    """``Env.sample_pose_goal``'s maps on the card in one launch, bit-equal
+    to ``engine/sampling.py``'s: fresh (pose (A, N, 3), goal (A, N, 2)),
+    views of one new buffer, from the uniforms ``Env._draw`` makes (None
+    where the world draws none) and ``cur_pose`` (A, N, 3), where the
+    robots stand (zeros when None).  RANDOM_DISC: ``u_pose`` (3, A, N),
+    ``u_goal`` (2, A, N, K); TABLES_THEN_CORRIDOR: ``u_jitter`` (A, N, 2)
+    where the world jitters, and where it has corridor robots ``u_pose``
+    (3, A, N, K) and ``u_goal`` (2, A, N, K).  A FIXED_TABLES world never
+    samples inside a step and has no kernel sample."""
+    c, dev = w.consts, w.wall.device
+    a, n = arenas, c.n
+    _require(not w.fixed, lambda: "a FIXED_TABLES world samples no resets")
+    disc = c.mode == ResetMode.RANDOM_DISC.value
+    k = 1 if u_goal is None else u_goal.shape[-1]
+    candidates = (((3, a, n) if disc else (3, a, n, k)), (2, a, n, k))
+    want = (*(candidates if disc or c.n_fixed < n else (None, None)),
+            (a, n, 2) if c.jitter > 0.0 else None,
+            None if cur_pose is None else (a, n, 3))
+    inputs = (u_pose, u_goal, u_jitter, cur_pose)
+    got = tuple(None if t is None else (tuple(t.shape), t.dtype, t.device)
+                for t in inputs)
+    _require(a > 0 and k > 0 and got == tuple(
+        None if s is None else (s, _F32, dev) for s in want),
+        lambda: f"uniforms {got}, not {want} float32 on {dev}")
+    inputs = [None if t is None else t.contiguous() for t in inputs]
+    m = a * n
+    out = torch.empty(5 * m, dtype=_F32, device=dev)
+    status = _launcher("env_sample_launch")(
+        ctypes.addressof(c), a, k,
+        *(None if t is None else t.data_ptr() for t in inputs),
+        out.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "env_sample")
+    graphs.launched(_count, "env_sample", m)
+    return out[:3 * m].view(a, n, 3), out[3 * m:].view(a, n, 2)

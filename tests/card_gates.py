@@ -508,8 +508,9 @@ def reset_counts():
 def read_counts() -> dict:
     """Launches since :func:`reset_counts` by (kernel, batch, precision):
     the lidar (``lidar_obs``, or ``lidar_obs_walls`` in its walls-only
-    mode) and the env step (``env_physics``, and ``env_reset`` where the
-    world resets) run in float32 in every mode."""
+    mode) and the env step (``env_physics``, and ``env_reset`` and the
+    reset sampler ``env_sample`` where the world resets) run in float32 in
+    every mode."""
     return {**lidar_cuda.launches_by_mode, **trunk_cuda.launches_by_mode,
             **env_cuda.launches_by_mode}
 
@@ -517,11 +518,12 @@ def read_counts() -> dict:
 def env_launches(env, robots: int, steps: int) -> dict:
     """The env-step kernels' launches of ``steps`` steps of ``env`` at
     ``robots`` robots: none off the kernel path (the box footprint), the
-    reset apply only where the world resets."""
+    reset sampler and the reset apply only where the world resets."""
     if env._kernels is None:
         return {}
     out = {("env_physics", robots, "float32"): steps}
     if not env._kernels.fixed:
+        out[("env_sample", robots, "float32")] = steps
         out[("env_reset", robots, "float32")] = steps
     return out
 

@@ -34,6 +34,7 @@ def test_cpu_env_steps_through_the_plain_chain(monkeypatch, world,
 
     monkeypatch.setattr(env_cuda, "physics", refuse)
     monkeypatch.setattr(env_cuda, "reset_apply", refuse)
+    monkeypatch.setattr(env_cuda, "sample", refuse)
     env = Env(get_world(world), device="cpu", seed=1, use_kernels=use_kernels)
     assert env._kernels is None
     state, _ = env.reset(2)
@@ -46,12 +47,15 @@ def test_cpu_env_steps_through_the_plain_chain(monkeypatch, world,
                                    "circle_train", "mini"])
 def test_kernel_constants(world):
     """The constants the kernels read, as the plain chain rounds them to
-    float32, with dense group ids where groups reset together."""
+    float32, with dense group ids where groups reset together, and the
+    reset sampler's: the tables where the world has them, the disc's
+    radius, dmin^2 and dmax^2 - dmin^2 as Python computes them and PyTorch
+    rounds them, and the jitter."""
     spec = get_world(world)
     env = Env(spec, device="cpu")
     w = env_cuda.world(spec, env._wall_cells, env.wall_table)
     c = w.consts
-    assert ctypes.sizeof(env_cuda.EnvConsts) == 80
+    assert ctypes.sizeof(env_cuda.EnvConsts) == 120
     f32 = lambda x: float(np.float32(x))
     t = env.wall_table
     assert (c.wall, c.k, c.nx, c.ny) == (env._wall_cells.data_ptr(), t.k,
@@ -65,6 +69,18 @@ def test_kernel_constants(world):
         f32((2 * spec.robot_radius) ** 2), f32(spec.goal_size),
         f32(spec.omega_thresh))
     assert w.fixed == (spec.reset_mode is ResetMode.FIXED_TABLES)
+    dmin, dmax = spec.goal_dist_min, spec.goal_dist_max
+    assert (c.n_fixed, c.spawn_r, c.dmin_sq, c.d_span, c.jitter) == (
+        spec.n_fixed, f32(spec.spawn_radius), f32(dmin * dmin),
+        f32(dmax * dmax - dmin * dmin), f32(spec.pose_jitter))
+    if spec.reset_mode is ResetMode.RANDOM_DISC:
+        assert w.tables is None and c.pose_table is c.goal_table is None
+    else:
+        for t, table, ptr in zip(w.tables, (spec.init_pose_table,
+                                            spec.goal_table),
+                                 (c.pose_table, c.goal_table)):
+            assert t.dtype == torch.float32 and t.is_contiguous()
+            assert ptr == t.data_ptr() and np.array_equal(t.numpy(), table)
     if spec.reset_mode is ResetMode.TABLES_THEN_CORRIDOR:
         ids = w.group_id.tolist()
         assert c.group_id == w.group_id.data_ptr()
@@ -80,3 +96,38 @@ def test_kernel_refuses_too_many_robots():
     env = Env(get_world("mini"), device="cpu")
     with pytest.raises(ValueError, match="1025"):
         env_cuda.world(spec, env._wall_cells, env.wall_table)
+
+
+def _sample_case(world, a=2, drop=None, **change):
+    """A world's kernel view and the uniforms Env._draw makes for ``a``
+    arenas on the CPU, with input ``drop`` left out and ``change``'s
+    replaced."""
+    env = Env(get_world(world), device="cpu", seed=1)
+    w = env_cuda.world(env.spec, env._wall_cells, env.wall_table)
+    u = dict(zip(("u_pose", "u_goal", "u_jitter"), env._draw(a)),
+             cur_pose=torch.zeros((a, env.n_robots, 3)))
+    if drop:
+        u[drop] = None
+    u.update(change)
+    return w, a, u
+
+
+@pytest.mark.parametrize("world,drop,change,refusal", [
+    ("circle", None, {}, "FIXED_TABLES"),
+    ("stage1", "u_goal", {}, "uniforms"),
+    ("stage1", None, {"u_pose": torch.zeros((3, 2, 24, 32))}, "uniforms"),
+    ("stage1", None, {"cur_pose": torch.zeros((2, 24, 2))}, "uniforms"),
+    ("stage2", None, {"u_goal": torch.zeros((2, 2, 44, 32),
+                                            dtype=torch.float64)},
+     "uniforms"),
+    ("stage2", None, {"u_jitter": torch.zeros((2, 44, 2))}, "uniforms"),
+    ("circle_train", "u_jitter", {}, "uniforms"),
+    ("circle_train", None, {"u_pose": torch.zeros((3, 2, 50, 32))},
+     "uniforms")])
+def test_sampler_kernel_refuses_bad_uniforms(world, drop, change, refusal):
+    """env_cuda.sample checks its uniforms against the world before any
+    launch: a FIXED_TABLES world, a draw missing, of another shape, dtype
+    or kind than the world's reset mode makes, or one it does not make."""
+    w, a, u = _sample_case(world, drop=drop, **change)
+    with pytest.raises(ValueError, match=refusal):
+        env_cuda.sample(w, a, **u)

@@ -131,7 +131,7 @@ BWD_PATHS = list(dict.fromkeys((w, mb, p, d) for w, _, mb, modes in PATHS
                                if mb for p, d in modes))
 #: Every (kernel, batch, precision) held above: a path launches no other.
 CHECKED = ({(k, a * N_ROBOTS[w], "float32") for w, a in DISC_PATHS
-            for k in ("lidar_obs", "env_physics", "env_reset")}
+            for k in ("lidar_obs", "env_physics", "env_sample", "env_reset")}
            | {("lidar_obs_walls", a * N_ROBOTS[w], "float32")
               for w, a in WALLS_PATHS}
            | {("twin_trunks", b, p) for _, b, p, _ in FWD_PATHS}
@@ -675,9 +675,140 @@ def test_env_kernel_path_matches_plain_path(cuda, world, arenas, inject,
     robots = arenas * n
     assert env_cuda.launches_by_mode["env_physics", robots, "float32"] \
         - counts["env_physics", robots, "float32"] == 240
-    assert env_cuda.launches_by_mode["env_reset", robots, "float32"] \
-        - counts["env_reset", robots, "float32"] == (0 if fixed else 240)
+    for k in ("env_sample", "env_reset"):
+        assert env_cuda.launches_by_mode[k, robots, "float32"] \
+            - counts[k, robots, "float32"] == (0 if fixed else 240), k
     assert fixed or resets > 0
+
+
+#: The reset sampler's paths: the training worlds at their presets' arenas
+#: (stage 1 per robot, stage 2's tables and corridor, circle_train's
+#: jittered tables).
+SAMPLE_PATHS = [("stage1", TRAIN_ARENAS), ("stage2", S2_ARENAS),
+                ("circle_train", FT_ARENAS)]
+
+
+def _edge_uniforms(env, u_pose, u_goal, u_jitter, cur):
+    """The last arena's first robots of ``env``'s world set on the
+    samplers' edges, in place: in the disc a robot on the rim facing out
+    (no candidate inside: the projection) and one at the centre whose
+    first candidate lies at exactly R (kept by ``<=``) with a second one
+    valid; in the corridor a robot where every pose and goal candidate is
+    within 7 m (candidate 0), three with u_y at 0.4f and its neighbours,
+    and one whose first pose and goal candidates lie at exactly 7 m (kept
+    by ``>=``); the jitter at 0 and just below 1."""
+    spec = env.spec
+    below = torch.nextafter(torch.tensor(0.4), torch.tensor(0.0)).item()
+    above = torch.nextafter(torch.tensor(0.4), torch.tensor(1.0)).item()
+    top = torch.nextafter(torch.tensor(1.0), torch.tensor(0.0)).item()
+    if spec.name == "stage1":
+        u_pose[:, -1, 0] = torch.tensor([top, 0.0, 0.25])
+        u_goal[1, -1, 0] = 0.0
+        u_pose[0, -1, 1] = 0.0
+        u_goal[:, -1, 1, 0] = torch.tensor([17 / 36, 0.0])  # r = 9 exactly
+        u_goal[0, -1, 1, 1] = 0.0                            # r = 8
+        return
+    if u_jitter is not None:
+        u_jitter[-1, :2] = torch.tensor([[0.0, top], [top, 0.0]])
+    if u_pose is None:
+        return
+    i = spec.n_fixed
+    cur[-1, i:i + 5] = torch.tensor([[14.0, -3.0, 0.0]] + [[-20.0, 20.0,
+                                                            0.0]] * 3
+                                    + [[2.0, -1.0, 0.0]])
+    for u in (u_pose, u_goal):
+        u[0, -1, i] = 0.5                     # x = 14
+        u[1, -1, i] = 0.2                     # y = -3
+        u[1, -1, i + 1:i + 4, 0] = torch.tensor([below, 0.4, above])
+    u_pose[:2, -1, i + 4, 0] = 0.0            # (9, -1): 7 m from (2, -1)
+    u_pose[:2, -1, i + 4, 1] = torch.tensor([top, 0.9])
+    u_goal[:, -1, i + 4, 0] = torch.tensor([0.7, 0.0])   # (16, -1)
+    u_goal[:, -1, i + 4, 1] = torch.tensor([top, 0.9])
+
+
+@pytest.mark.parametrize("world,arenas", SAMPLE_PATHS)
+@pytest.mark.parametrize("standing", [True, False], ids=["cur", "origin"])
+def test_sampler_kernel_matches_plain_maps(cuda, world, arenas, standing):
+    """``env_cuda.sample`` on the uniforms ``Env._draw`` makes, with the
+    edge rows of ``_edge_uniforms``, is the plain maps of
+    engine/sampling.py (``Env._sample_plain``) bit for bit, from where the
+    robots stand and from the origin; the edge rows pick the candidates
+    they were set for.  One launch a call."""
+    env = Env(get_world(world), device=cuda, seed=SEED)
+    assert env._sampler is env._kernels is not None
+    n = env.n_robots
+    draws = env._draw(arenas)
+    cur = None
+    if standing:
+        cur = env.sample_pose_goal(arenas)[0]
+        cur[..., :2] = cur[..., :2] * 1.5 - 2.0   # off the tables too
+    _edge_uniforms(env, *draws, cur if cur is not None else
+                   torch.zeros((arenas, n, 3), device=cuda))
+    before = [None if t is None else t.clone() for t in (*draws, cur)]
+    counts = env_cuda.launches_by_mode.copy()
+    got = env_cuda.sample(env._sampler, arenas, *draws, cur)
+    want = env._sample_plain(arenas, *draws, cur)
+    assert env_cuda.launches_by_mode["env_sample", arenas * n, "float32"] \
+        - counts["env_sample", arenas * n, "float32"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (g != w).nonzero()[:8].tolist()
+    assert all(t is None or torch.equal(t, b)
+               for t, b in zip((*draws, cur), before)), "an input written"
+    pose, goal = (t[-1].cpu() for t in got)
+    if world == "stage1":
+        assert pose[0, 0] > 8.99 and bool((goal[0] - torch.tensor(
+            [9.0, 0.0])).abs().max() < 1e-5)           # projected
+        assert torch.equal(goal[1], torch.tensor([9.0, 0.0]))
+    elif world == "stage2" and standing:
+        i = env.spec.n_fixed
+        assert torch.equal(pose[i, :2], torch.tensor([14.0, -3.0]))
+        assert torch.equal(goal[i], torch.tensor([14.0, -3.0]))
+        # 0.4f and the float below it take the band y in [-5, -1] (each
+        # rounds to -5), the float above takes (-19, -13]
+        assert pose[i + 1:i + 4, 1].tolist() == [-5.0, -5.0, -13.0]
+        assert torch.equal(pose[i + 4, :2], torch.tensor([9.0, -1.0]))
+        assert torch.equal(goal[i + 4], torch.tensor([16.0, -1.0]))
+
+
+@pytest.mark.parametrize("world,arenas", SAMPLE_PATHS)
+def test_kernel_sampler_steps_as_the_plain_sampler(cuda, world, arenas):
+    """128 steps of the kernel path with the sampler kernel and with the
+    plain maps in its place (``_sampler`` None), each env on its own
+    generator from one seed, random actions out of their bounds, and every
+    40 steps the first arena timed out as a whole, so that circle_train's
+    one group resets too: every field of every step bit-equal, and the
+    sampler kernel launched once a step and once in the reset."""
+    spec = get_world(world)
+    env, plain = (Env(spec, device=cuda, seed=SEED) for _ in range(2))
+    plain._sampler = None
+    robots = arenas * env.n_robots
+    counts = env_cuda.launches_by_mode.copy()
+    state, _ = env.reset(arenas)
+    pstate, _ = plain.reset(arenas)
+    assert all(torch.equal(v, getattr(pstate, k))
+               for k, v in vars(state).items())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    resets = 0
+    for t in range(128):
+        act = torch.rand((arenas, env.n_robots, 2), generator=g,
+                         device=cuda) * 4 - 1.5
+        if t % 40 == 20:
+            step = torch.where(torch.arange(arenas, device=cuda)[:, None]
+                               == 0, spec.timeout, state.step)
+            state = dataclasses.replace(state, step=step)
+            pstate = dataclasses.replace(pstate, step=step.clone())
+        got = _step_fields(env.step(state, act))
+        want = _step_fields(plain.step(pstate, act))
+        for k, w in want.items():
+            assert torch.equal(got[k], w), f"step {t}: {k} differs"
+        state, pstate = (EnvState(**{k[6:]: v for k, v in out.items()
+                                     if k.startswith("state.")})
+                         for out in (got, want))
+        resets += int((state.step == 0).sum())
+    assert resets > 0
+    assert env_cuda.launches_by_mode["env_sample", robots, "float32"] \
+        - counts["env_sample", robots, "float32"] == 129
 
 
 # ---------------------------------------------------------------------------
@@ -1264,12 +1395,16 @@ CURRICULUM_EVAL_STEPS = 300
 
 def _stage_launches(cfg, updates, cuda) -> dict:
     """The launches of ``updates`` updates of a fresh ``cfg`` trainer after
-    the reset of its arenas (one more lidar pass)."""
+    the reset of its arenas (one more lidar pass and, where the world
+    resets, one more sample)."""
     tr = Trainer(cfg, device=cuda)
     steps = (cfg.horizon * tr.n_local * tr.spec.n_robots
              // cfg.ppo.batch_size * cfg.ppo.epochs)
+    robots = tr.n_local * tr.spec.n_robots
     want = training_launches(tr, updates, steps)
-    want[("lidar_obs", tr.n_local * tr.spec.n_robots, "float32")] += 1
+    want[("lidar_obs", robots, "float32")] += 1
+    if ("env_sample", robots, "float32") in want:   # the reset's sample
+        want[("env_sample", robots, "float32")] += 1
     return want
 
 
